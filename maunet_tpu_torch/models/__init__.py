@@ -1,0 +1,5 @@
+"""Model definitions (NHWC, inference only)."""
+
+from maunet_tpu_torch.models.factory import UrbanPredictor, build_model
+
+__all__ = ["UrbanPredictor", "build_model"]

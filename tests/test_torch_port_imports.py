@@ -1,0 +1,123 @@
+"""The PyTorch port stands on torch and numpy alone, and never computes a
+CUDA call on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
+from maunet_tpu_torch.ops.kernels import _build, lstm, packed_vgg, resize_pack
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "optax", "orbax", "yaml"):
+    sys.modules[name] = None          # any import of them raises ImportError
+import maunet_tpu_torch
+for mod in pkgutil.walk_packages(maunet_tpu_torch.__path__, "maunet_tpu_torch."):
+    importlib.import_module(mod.name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] == "maunet_tpu")
+assert not leaked, leaked
+print("imported", len([m for m in sys.modules if m.startswith("maunet_tpu_torch")]))
+"""
+
+
+def test_port_imports_without_jax_or_yaml():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_cuda_call_without_cuda_raises(tmp_path):
+    """A CUDA-device request fails; nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without it")
+    with pytest.raises((RuntimeError, AssertionError)):
+        resize_pack.resize_pack(torch.zeros(1, 2, 2, 1, device="cuda"), (3, 3))
+    from maunet_tpu_torch.models.factory import build_model
+    path = str(tmp_path / "m.pth")
+    model = build_model({"base_filters": 4, "temporal_dim": 4, "meta_dim": 4,
+                         "lstm_hidden": 4})
+    torch.save({"model_state_dict": model.state_dict(),
+                "hyperparameters": {"base_filters": 4}}, path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        load_any_checkpoint(path, device="cuda")
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: resize_pack.resize_pack(x, (4, 4)),
+    lambda x: packed_vgg.conv3x3_fused([x], [torch.zeros(2, 2, 3, 3)]),
+    lambda x: lstm.lstm_last_hidden(x.reshape(1, 1, 8), torch.zeros(2, 8),
+                                    torch.ones(1, dtype=torch.int32)),
+])
+def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
+    """The wrappers take the plain version only for CPU tensors."""
+    x = torch.zeros(1, 2, 2, 2, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        call(x)
+
+
+def test_plain_versions_only_for_cpu():
+    x = torch.ones(1, 2, 2, 1)
+    assert _build.on_cpu(x, "t")
+    np.testing.assert_allclose(resize_pack.resize_pack(x, (3, 3)).numpy(), 1.0)
+
+
+def test_orbax_directory_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="orbax"):
+        load_any_checkpoint(str(tmp_path))
+
+
+def test_kernel_branches_marshal_arguments(monkeypatch):
+    """The CUDA branch of each wrapper, run on CPU tensors against a
+    recording stand-in for the C entry points: validation, weight layout and
+    argument marshalling are Python that the CPU suite can reach."""
+    calls = []
+
+    def fake_function(name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes), (name, args)
+            calls.append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(_build, "function", fake_function)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    bf = torch.bfloat16
+    launches = [f.launches for f in (packed_vgg.conv3x3_fused, lstm.lstm_last_hidden,
+                                     resize_pack.resize_pack)]
+
+    parts = [torch.zeros(2, 5, 7, 3, dtype=bf), torch.zeros(2, 5, 7, 16, dtype=bf)]
+    weights = [torch.zeros(12, 3, 3, 3), torch.zeros(12, 16, 3, 3)]
+    out = packed_vgg.conv3x3_fused(parts, weights, scale=torch.ones(12),
+                                   bias=torch.zeros(12), add=torch.zeros(2, 3, 7, 12),
+                                   relu=True)
+    assert out.shape == (2, 5, 7, 12) and out.dtype == bf
+    name, args = calls[-1]
+    assert name == "maunet_conv3x3_fused" and args[3] == 2 and args[7:12] == (2, 5, 7, 12, 1)
+    with pytest.raises(ValueError, match="bf16"):
+        packed_vgg.conv3x3_fused([p.float() for p in parts], weights)
+    with pytest.raises(ValueError, match="does not match"):
+        packed_vgg.conv3x3_fused(parts, weights[::-1])
+
+    h = lstm.lstm_last_hidden(torch.zeros(3, 10, 32), torch.zeros(8, 32),
+                              torch.full((3,), 10, dtype=torch.int32))
+    assert h.shape == (3, 8) and calls[-1][1][4:7] == (3, 10, 8)
+    with pytest.raises(ValueError, match="int32"):
+        lstm.lstm_last_hidden(torch.zeros(3, 10, 32), torch.zeros(8, 32),
+                              torch.full((3,), 10))
+
+    y = resize_pack.resize_pack(torch.zeros(2, 15, 15, 8, dtype=bf), (30, 31))
+    assert y.shape == (2, 30, 31, 8) and calls[-1][1][2:9] == (1, 2, 15, 15, 8, 30, 31)
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_pack.resize_pack(torch.zeros(2, 8, 15, 15).permute(0, 2, 3, 1), (30, 30))
+
+    assert [f.launches for f in (packed_vgg.conv3x3_fused, lstm.lstm_last_hidden,
+                                 resize_pack.resize_pack)] == [n + 1 for n in launches]
