@@ -1,1 +1,1 @@
-"""Data contracts shared with the JAX package."""
+"""Datasets, batching and the host-to-device pipeline (numpy copies of the JAX package's)."""

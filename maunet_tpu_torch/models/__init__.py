@@ -1,4 +1,4 @@
-"""Model definitions (NHWC, inference only)."""
+"""Model definitions (NHWC)."""
 
 from maunet_tpu_torch.models.factory import UrbanPredictor, build_model
 

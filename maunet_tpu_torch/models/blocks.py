@@ -1,8 +1,10 @@
-"""Core conv blocks, inference (eval mode) only.
+"""Core conv blocks.
 
 Port of ``maunet_tpu/models/blocks.py``.  Tensors are NHWC in
-``compute_dtype`` (bf16 by default) with f32 parameters; the BatchNorm affine
-(eps 1e-5, running statistics) is folded into each conv's epilogue in f32.
+``compute_dtype`` (bf16 by default) with f32 parameters.  In eval mode the
+BatchNorm affine (eps 1e-5, running statistics) is folded into each conv's
+epilogue in f32; in train mode BatchNorm runs on batch statistics
+(:func:`conv_bn_relu_train`).
 
 Two structural points carry over from the JAX module:
 
@@ -114,6 +116,57 @@ def conv_bn_relu(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
     return torch.relu(y * scale + bias).to(compute_dtype).contiguous()
 
 
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm of an NHWC tensor as flax computes it: batch
+    mean and the biased variance E[y^2] - E[y]^2 (clamped at 0) in f32, and
+    running statistics updated in place with momentum 0.1 from the biased
+    variance (torch's own BatchNorm would use the unbiased one)."""
+    yf = y.float()
+    mean = yf.mean(dim=(0, 1, 2))
+    var = ((yf * yf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        bn.num_batches_tracked += 1
+    return (yf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
+def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
+                       bn: nn.BatchNorm2d, compute_dtype: torch.dtype) -> torch.Tensor:
+    """relu(BN(conv3x3(concat(parts)))) in train mode (JAX ``VGGBlock`` with
+    ``train=True``, blocks.py:478-522).
+
+    The spatial parts go through one ``compute_dtype`` cuDNN conv over their
+    concatenation (JAX runs the train convs on XLA: ``train_fused_conv`` is
+    off by default), the broadcast embeddings through the closed form
+    :func:`const_conv`.  The conv bias is detached, as JAX
+    ``stop_gradient``s it: batch-statistics BN cancels it exactly.  BN in
+    f32, ReLU, then a cast to ``compute_dtype``."""
+    hw = next((tuple(p.shape[1:3]) for p in parts if tuple(p.shape[1:3]) != (1, 1)),
+              tuple(parts[0].shape[1:3]))
+    spatial, weights, bcast = [], [], []
+    off = 0
+    for p in parts:
+        c = p.shape[-1]
+        wt = conv.weight[:, off:off + c]
+        off += c
+        if tuple(p.shape[1:3]) == (1, 1) and hw != (1, 1):
+            bcast.append((p, wt))
+        else:
+            spatial.append(p.to(compute_dtype))
+            weights.append(wt)
+    x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
+    wt = torch.cat(weights, dim=1) if len(weights) > 1 else weights[0]
+    y = F.conv2d(x.permute(0, 3, 1, 2),
+                 wt.to(compute_dtype).contiguous(memory_format=torch.channels_last),
+                 padding=1).permute(0, 2, 3, 1)
+    for e, w_e in bcast:
+        y = y + const_conv(e, w_e, *hw).to(compute_dtype)
+    y = y + conv.bias.detach().to(compute_dtype)
+    return torch.relu(batch_norm_train(y, bn)).to(compute_dtype).contiguous()
+
+
 class VGGBlock(nn.Module):
     """(Conv3x3 -> BatchNorm -> ReLU) x 2 (reference src/model.py:9-21).
 
@@ -131,18 +184,22 @@ class VGGBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(out_channels, eps=1e-5)
 
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "VGGBlock is inference-only (call .eval()); training is not "
-                "ported yet (ROADMAP.md)")
         cd = self.compute_dtype
-        x = conv_bn_relu(list(parts), self.conv1, self.bn1, cd)
-        return conv_bn_relu([x], self.conv2, self.bn2, cd)
+        step = conv_bn_relu_train if self.training else conv_bn_relu
+        x = step(list(parts), self.conv1, self.bn1, cd)
+        return step([x], self.conv2, self.bn2, cd)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool of an NHWC tensor, floor semantics for odd sizes
-    (torch ``nn.MaxPool2d(2, 2)``, reference src/model.py:58,218): 31 -> 15."""
+    (torch ``nn.MaxPool2d(2, 2)``, reference src/model.py:58,218): 31 -> 15.
+
+    The where-chain of JAX (blocks.py:717-720): rows first, then columns,
+    ``>=`` so the first of tied values wins, and the gradient goes to that
+    one winner (``amax`` would split it over the ties)."""
     b, h, w, c = x.shape
-    x = x[:, :h // 2 * 2, :w // 2 * 2]
-    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    x = x[:, :h // 2 * 2, :w // 2 * 2].reshape(b, h // 2, 2, w // 2, 2, c)
+    a, b2 = x[:, :, 0], x[:, :, 1]
+    m = torch.where(a >= b2, a, b2)
+    m0, m1 = m[:, :, :, 0], m[:, :, :, 1]
+    return torch.where(m0 >= m1, m0, m1)

@@ -1,4 +1,4 @@
-"""Metadata-augmented classic U-Net, inference only.
+"""Metadata-augmented classic U-Net.
 
 Port of ``maunet_tpu/models/unet.py`` (reference ``UrbanPredictor_unet``,
 src/model.py:195-292): 4-down/4-up U-Net over the 23-channel tile stack, the
@@ -36,11 +36,10 @@ class MetaUNet(nn.Module):
         self.out_channels = out_channels
         self.compute_dtype = compute_dtype
         nb = [base_filters * 2 ** i for i in range(5)]
-        vgg = lambda cin, cout: VGGBlock(cin, cout, cout, compute_dtype)
-        self.conv0_0 = vgg(in_channels, nb[0])
-        self.conv1_0 = vgg(nb[0], nb[1])
-        self.conv2_0 = vgg(nb[1], nb[2])
-        self.conv3_0 = vgg(nb[2], nb[3])
+        # Registration order is the reference's (src/model.py:195-240):
+        # encoders first.  It fixes the parameter indices of a torch
+        # optimizer state_dict (maunet_tpu/interop/torch_export.py
+        # reference_param_order).
         emb = 0
         self.temporal_encoder = self.meta_encoder = None
         if temporal_embeddings:
@@ -52,6 +51,11 @@ class MetaUNet(nn.Module):
             self.meta_encoder = MetadataEncoder(meta_features, meta_dim,
                                                 compute_dtype=compute_dtype)
             emb += meta_dim
+        vgg = lambda cin, cout: VGGBlock(cin, cout, cout, compute_dtype)
+        self.conv0_0 = vgg(in_channels, nb[0])
+        self.conv1_0 = vgg(nb[0], nb[1])
+        self.conv2_0 = vgg(nb[1], nb[2])
+        self.conv3_0 = vgg(nb[2], nb[3])
         self.conv4_0 = vgg(nb[3] + emb, nb[4])
         self.conv3_1 = vgg(nb[3] + nb[4], nb[3])
         self.conv2_1 = vgg(nb[2] + nb[3], nb[2])

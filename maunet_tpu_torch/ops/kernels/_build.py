@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All of ``maunet_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  Nothing includes
+Each of ``maunet_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``
+process, all started together, and the objects link into one shared library
+with a plain C interface, loaded with ``ctypes``.  Nothing includes
 PyTorch's headers, so the build takes seconds.  The library lands in
 ``build/maunet_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an unchanged tree loads the library it built before.
@@ -25,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "maunet_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -45,25 +46,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmaunet_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with every failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds agree on one file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj])
+        _run(cmds)
+        lib = os.path.join(tmp, out.name)
+        _run([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: concurrent builds agree on one file
     return out
 
 
@@ -109,3 +122,13 @@ def on_cpu(t: torch.Tensor, what: str) -> bool:
 def require(cond: bool, what: str, msg: str) -> None:
     if not cond:
         raise ValueError(f"{what}: {msg}")
+
+
+def require_no_grad(what: str, *tensors: torch.Tensor | None) -> None:
+    """A kernel launch returns tensors without a ``grad_fn``.  Refuse one that
+    would silently cut a gradient: grad enabled and an input that needs one,
+    outside the autograd ``Function`` (if any) that wraps the kernel."""
+    require(not (torch.is_grad_enabled()
+                 and any(t is not None and t.requires_grad for t in tensors)),
+            what, "an input needs a gradient and this kernel has no backward "
+            "here; call it under torch.no_grad() or through its autograd Function")

@@ -92,6 +92,9 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
     if _build.on_cpu(parts[0], what):
         return conv3x3_fused_plain(parts, weights, scale=scale, bias=bias,
                                    add=add, relu=relu)
+    # The kernel has no backward: train mode runs cuDNN convs
+    # (models/blocks.conv_bn_relu_train).
+    _build.require_no_grad(what, *parts, *weights, scale, bias, add)
     _build.require(1 <= len(parts) <= MAX_PARTS, what,
                    f"takes 1-{MAX_PARTS} parts, got {len(parts)}")
     _build.require(len(weights) == len(parts), what, "one weight slice per part")

@@ -6,7 +6,8 @@ Port of ``maunet_tpu/ops/resize.py``.  For output size M from input size N:
 which is ``torch.nn.functional.interpolate(x_nchw, size, mode='bilinear',
 align_corners=True)`` (reference src/model.py:121,219).  The resize itself
 runs in ``ops/kernels/resize_pack.py``: the CUDA kernel on the card, the
-separable interpolation products on the CPU.  The lane-packed output forms of
+separable interpolation products on the CPU, and under autograd a
+``Function`` whose backward is the transposed-matrix resize.  The lane-packed output forms of
 the JAX module are a TPU layout device and are not ported.
 """
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's U-Net serving forward on one CUDA card.
+"""Profile the PyTorch port's U-Net on one CUDA card: the serving forward,
+or with ``--train`` one train step.
 
-    python3 profile_port.py [--trace PATH]   # default build/port_forward_trace.json
+    python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
+    python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
 
-It builds the full-width serving U-Net of ``chip_smoke.py`` (seeded weights
-and BatchNorm statistics), assembles 8 requests at 256² as ``predict_many``
-does, and prints:
+The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
+(seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
+``predict_many`` does, and prints:
 
 * the forward's wall time on device-resident inputs (CUDA events, median of
   10 after 3 warm-up runs);
@@ -17,6 +19,12 @@ does, and prints:
   forward, as the union of the kernel intervals, split by kernel family; and
   the device idle share, 1 - busy / wall.  The wall time is the unprofiled
   one: the profiler slows the host's dispatch, not the kernels.
+
+The ``--train`` mode builds ``TrainConfig``'s default model and AdamW
+(seeded), takes one batch of 16 synthetic 256² samples with T = 828 on the
+card, and prints the train step's time (host clock around synchronised
+steps, median of 10 after 3 warm-up steps) and, from a trace of 3 steps,
+the same busy-time split by family and idle share.
 
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
@@ -48,15 +56,55 @@ FAMILIES = (
 )
 OTHER = "other torch ops (epilogues, BN fold, casts, cat, pool)"
 
+# The train step's families.  E is the stash instantiation of B's template
+# (``<true>``, mangled ``ILb1E``); every train-mode conv is cuDNN's.
+TRAIN_FAMILIES = (
+    ("A conv3x3_fused", ("conv3x3_fused",)),
+    ("E lstm stash forward", ("lstm_last_hidden_kernel<true>", "lstm_last_hidden_kernelILb1E")),
+    ("B lstm_last_hidden", ("lstm_last_hidden",)),
+    ("F lstm backward", ("lstm_backward",)),
+    ("dW lstm_dw", ("lstm_dw",)),
+    ("C resize_align_corners", ("resize_align_corners",)),
+    ("cuDNN convs, forward and backward", ("xmma", "cudnn", "dgrad", "wgrad", "fprop", "conv")),
+    ("GEMMs (dense layers, SSIM blur, resize backward)", ("gemm", "cutlass")),
+    ("optimizer (multi-tensor apply)", ("multi_tensor_apply",)),
+)
+TRAIN_OTHER = "other torch ops (BN, casts, cat, pool, losses)"
 
-def family(name: str) -> str:
-    for label, keys in FAMILIES:
+
+def family(name: str, families=FAMILIES, other: str = OTHER) -> str:
+    for label, keys in families:
         if any(k in name for k in keys):
             return label
-    return OTHER
+    return other
 
 
-def trace_breakdown(events: list[dict], n_forwards: int) -> dict:
+def profile_breakdown(fn, n: int, trace: str, families=FAMILIES, other: str = OTHER) -> dict:
+    """Trace ``n`` calls of ``fn`` into ``trace`` and return its breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        doc = json.load(f)
+    return trace_breakdown(doc["traceEvents"] if isinstance(doc, dict) else doc, n,
+                           families, other)
+
+
+def print_breakdown(br: dict, what: str, n: int, wall_ms: float) -> None:
+    print(f"device busy per {what}: {br['busy_ms']:.3f} ms over {br['kernels']:.0f} kernels "
+          f"(union of kernel intervals, {n} profiled); idle share against the "
+          f"unprofiled {wall_ms:.3f} ms: {1 - br['busy_ms'] / wall_ms:.3f}")
+    for label, ms in sorted(br["families"].items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:8.3f} ms  {100 * ms / br['busy_ms']:5.1f}%  {label}")
+
+
+def trace_breakdown(events: list[dict], n_forwards: int, families=FAMILIES,
+                    other: str = OTHER) -> dict:
     """Device time per forward from Chrome-trace events (``ts``/``dur`` in
     µs): ``busy_ms``, the union of the kernel intervals; ``families``, each
     family's summed kernel time; ``kernels``, the kernel count."""
@@ -73,11 +121,11 @@ def trace_breakdown(events: list[dict], n_forwards: int) -> dict:
             cur_end = max(cur_end, end)
     if cur_end is not None:
         busy += cur_end - cur_start
-    families: dict[str, float] = {}
+    per_family: dict[str, float] = {}
     for e in kernels:
-        key = family(e["name"])
-        families[key] = families.get(key, 0.0) + float(e["dur"]) / 1e3 / n_forwards
-    return {"busy_ms": busy / 1e3 / n_forwards, "families": families,
+        key = family(e["name"], families, other)
+        per_family[key] = per_family.get(key, 0.0) + float(e["dur"]) / 1e3 / n_forwards
+    return {"busy_ms": busy / 1e3 / n_forwards, "families": per_family,
             "kernels": len(kernels) / n_forwards}
 
 
@@ -92,26 +140,77 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def train_profile(trace: str, dev: torch.device) -> None:
+    """``--train``: one full-width train step, timed and traced."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.data.synthetic import generate_dataset
+    from maunet_tpu_torch.losses import get_loss_fn
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.train.loop import Trainer
+    from maunet_tpu_torch.train.steps import train_step
+
+    cfg = TrainConfig()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        data = generate_dataset(os.path.join(tmpdir, "data"),
+                                {"train": cfg.batch_size, "val": 1},
+                                hw=256, temporal_len=cs.T_SERIES, seed=cs.SEED)
+        ds = NpzDataset(os.path.join(data, "train"), cfg.temporal_length)
+        batch = to_device(host_tensors(next(make_batches(ds, cfg.batch_size)),
+                                       pin=dev.type == "cuda"), dev)
+        trainer = Trainer(cfg, data, work_dir=os.path.join(tmpdir, "work"), device=dev)
+        state = trainer.init_state(batch["maps"].shape[-1])
+    loss_fn = get_loss_fn(cfg.loss)
+
+    def step():
+        train_step(state, batch, loss_fn)
+
+    for _ in range(3):
+        step()
+    ms = host_ms(step, reps=10)
+    print(f"train step ({cfg.batch_size} x 256², T = {cs.T_SERIES}, bf16, {cfg.optimizer}, "
+          f"{cfg.loss}): {ms:.3f} ms, {cfg.batch_size / ms * 1e3:.1f} tiles/s "
+          f"(host clock around synchronised steps, median of 10)")
+    n = 3
+    print_breakdown(profile_breakdown(step, n, trace, TRAIN_FAMILIES, TRAIN_OTHER),
+                    "train step", n, ms)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--trace", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "build", "port_forward_trace.json"),
-        help="where the Chrome trace of 3 forwards is written (default: %(default)s)")
+    parser.add_argument("--train", action="store_true",
+                        help="profile one train step instead of the serving forward")
+    parser.add_argument("--trace", default=None,
+                        help="where the Chrome trace is written (default: "
+                             "build/port_forward_trace.json, or build/port_train_trace.json)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    trace = args.trace or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build",
+        "port_train_trace.json" if args.train else "port_forward_trace.json")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.train:
+        train_profile(trace, torch.device("cuda", 0))
+    else:
+        serve_profile(trace)
+    return 0
+
+
+def serve_profile(trace: str) -> None:
+    """The serving forward at B=8, 256², and the host pieces around it."""
     import chip_smoke as cs
-    from torch.profiler import ProfilerActivity, profile
 
     from maunet_tpu_torch.apps.engine import PlannerEngine
     from maunet_tpu_torch.models.factory import build_model
     from maunet_tpu_torch.ops.kernels import packed_vgg
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     hp = {"model_type": "unet", "base_filters": 64, "temporal_dim": 64,
           "meta_dim": 64, "lstm_hidden": 96, "temporal_embeddings": True,
@@ -163,22 +262,8 @@ def main() -> int:
               f"({tflops:.1f} TFLOP/s), cuDNN bf16 conv alone {cudnn_ms:.4f} ms, "
               f"plain f32 {plain_ms:.4f} ms")
 
-    n_fwd = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_fwd):
-            forward()
-        torch.cuda.synchronize()
-    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    with open(args.trace) as f:
-        doc = json.load(f)
-    br = trace_breakdown(doc["traceEvents"] if isinstance(doc, dict) else doc, n_fwd)
-    print(f"device busy per forward: {br['busy_ms']:.3f} ms over {br['kernels']:.0f} kernels "
-          f"(union of kernel intervals, {n_fwd} profiled forwards); idle share against the "
-          f"unprofiled {fwd_ms:.3f} ms: {1 - br['busy_ms'] / fwd_ms:.3f}")
-    for label, ms in sorted(br["families"].items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:8.3f} ms  {100 * ms / br['busy_ms']:5.1f}%  {label}")
-    return 0
+    n = 3
+    print_breakdown(profile_breakdown(forward, n, trace), "forward", n, fwd_ms)
 
 
 if __name__ == "__main__":

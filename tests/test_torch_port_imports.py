@@ -23,15 +23,28 @@ for mod in pkgutil.walk_packages(maunet_tpu_torch.__path__, "maunet_tpu_torch.")
     importlib.import_module(mod.name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] == "maunet_tpu")
 assert not leaked, leaked
-print("imported", len([m for m in sys.modules if m.startswith("maunet_tpu_torch")]))
+print(" ".join(sorted(m for m in sys.modules if m.startswith("maunet_tpu_torch"))))
 """
+
+# The training path's modules, each of which must be among those imported.
+TRAINING_MODULES = [
+    "maunet_tpu_torch.losses.basic", "maunet_tpu_torch.losses.ssim",
+    "maunet_tpu_torch.losses.combined", "maunet_tpu_torch.train.config",
+    "maunet_tpu_torch.train.optimizers", "maunet_tpu_torch.train.state",
+    "maunet_tpu_torch.train.steps", "maunet_tpu_torch.train.checkpoint",
+    "maunet_tpu_torch.train.metrics", "maunet_tpu_torch.train.loop",
+    "maunet_tpu_torch.data.dataset", "maunet_tpu_torch.data.transforms",
+    "maunet_tpu_torch.data.synthetic", "maunet_tpu_torch.data.pipeline",
+]
 
 
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 38
+    assert not set(TRAINING_MODULES) - imported
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):

@@ -57,3 +57,21 @@ def test_trace_breakdown_counts_overlap_once(profile_port):
 
 def test_trace_breakdown_empty(profile_port):
     assert profile_port.trace_breakdown([], 3) == {"busy_ms": 0.0, "families": {}, "kernels": 0.0}
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void (anonymous namespace)::lstm_last_hidden_kernel<true>(float const*, float const*)",
+     "E lstm stash forward"),
+    ("_ZN12_GLOBAL__N_123lstm_last_hidden_kernelILb1EEEvPKfS2_", "E lstm stash forward"),
+    ("void (anonymous namespace)::lstm_last_hidden_kernel<false>(float const*, float const*)",
+     "B lstm_last_hidden"),
+    ("void (anonymous namespace)::lstm_backward_kernel(float const*)", "F lstm backward"),
+    ("void (anonymous namespace)::lstm_dw_partial_kernel(float const*)", "dW lstm_dw"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cuDNN convs, forward and backward"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<>()",
+     "optimizer (multi-tensor apply)"),
+    ("void at::native::reduce_kernel<512, 1>()", "other torch ops (BN, casts, cat, pool, losses)"),
+])
+def test_train_family(profile_port, name, want):
+    assert profile_port.family(name, profile_port.TRAIN_FAMILIES,
+                               profile_port.TRAIN_OTHER) == want
