@@ -11,10 +11,21 @@ Phases, one output line each (or a few for the kernel table):
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes its path gives it, with the tolerance stated
    below, and both times from CUDA events (median of 10 after 3 warm-up
-   runs);
-4. golden: the small U-Net of ``tests/fixtures/golden_unet.npz`` runs on
-   the card in bf16 and is held against the JAX package's recorded f32
-   output;
+   runs).  At its path's shapes each kernel is also timed beside the one
+   PyTorch call that computes the same function, where there is one (cuDNN's
+   bf16 conv with its epilogue for the convs, ``nn.LSTM`` for the LSTM
+   forward, ``F.interpolate`` for the resize, ``einsum`` for dW), and its
+   bound is reckoned: the larger of the bytes it must move over 3.35 TB/s
+   and the operations it does over the card's peak for their type (989
+   TFLOP/s bf16, 67 TFLOP/s f32).  The pair kernel is also held against the
+   two launches of the single-conv kernel that it replaces.  The shapes that
+   an evaluation batch (B = 16) gives A, B and C are checked here as well:
+   the U-Net's three convs and four upsamples, U-Net++'s eleven distinct
+   base-32 convs (up to five parts plus the embedding term) and its four
+   upsamples, and the LSTM at 16 lengths between T/2 and T;
+4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
+   and ``golden_unetpp.npz`` run on the card in bf16 and are held against the
+   JAX package's recorded f32 outputs;
 5. serving path: a full-width serving U-Net (base 64, LSTM 96, T = 828,
    bf16) with seeded random weights and BatchNorm statistics is saved as a
    reference-layout ``.pth`` and served through ``PlannerEngine`` on the
@@ -32,27 +43,50 @@ Phases, one output line each (or a few for the kernel table):
    those of A and B in validation.  From one saved state, one train step
    with the kernels and one with the plain versions patched in are compared;
    the best checkpoint then serves a ``predict`` through ``PlannerEngine``;
-   and the train step is timed (host clock around synchronised steps).
+   and the train step is timed (host clock around synchronised steps).  A
+   deep-supervised U-Net++ (base 32) then trains one epoch on the same data;
+7. evaluation path: the split's 40 test samples (256², T = 828; batches of
+   16, so the last is padded) go through ``evaluate_checkpoint`` on the card
+   for two seeded ``.pth`` checkpoints in the reference layout: the serving
+   U-Net (base 64) and U-Net++ at its reference width (base 32, LSTM 96,
+   temporal 64, meta 64).  The CSV must exist under its exact name and hold
+   40 distinct samples, two finite ``overall`` rows each, and class rows for
+   exactly the classes each sample has.  The counters of A, B, C and D must
+   rise.  One batch's metrics are then computed with the plain versions
+   patched in and compared, and the loop's tiles per second are printed;
+8. pair configuration: the same two models built with ``fuse_pair=True`` run
+   one forward at B = 8, 256².  G's counter must rise by the number of
+   eligible blocks (2 in the U-Net: ``conv0_0``, ``conv0_1``; 9 in U-Net++:
+   ``conv0_0``-``conv0_4``, ``conv1_0``-``conv1_3``), the output must agree
+   with the ``fuse_pair=False`` forward, and both forwards are timed in
+   turns (off, on, on, off).
 
 The line before the last is the kernel summary JSON: per kernel the launch
-count of its path (A, B, C: serving; E, F, dW: training), and over that
-path's shapes in phase 3 (B = 8 at 256² for A and C, B = 8 for B, B = 16
-for E, F and dW; one launch per distinct shape) the largest error against
-the plain version and the summed kernel and plain times.  The other shapes
-of phase 3 are pass/fail checks printed on their own lines.  The last line
+count of its path (A, B, C: serving; E, F, dW: training; D: evaluation; G:
+the pair configuration), and over that path's shapes in phase 3 (B = 8 at
+256² for A and C, B = 8 for B, B = 16 for E, F, dW and D, the eleven
+eligible blocks at B = 8 for G; one launch per distinct shape) the largest
+error against the plain version and the summed kernel, plain, bound and
+library times.  The other shapes of phase 3 are pass/fail checks printed on
+their own lines.  The last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises, and the script
 then exits non-zero without printing either line.
 
 Tolerances (the plain versions compute in f32 from the same bf16 operands):
   conv3x3_fused, resize (bf16): |kernel - plain| <= 1e-2 + 1e-2 |plain|,
     one bf16 ulp of the shared f32 result, since the two sum in other orders;
+  conv3x3_pair_fused (bf16): <= 2e-2 + 2e-2 |plain|, two bf16 roundings (mid
+    and output); against two chained conv3x3_fused launches the same bound;
+  masked_class_sums (f32 sums of about 7,000 terms per class, taken in other
+    orders on the two sides): <= 5e-5 + 5e-5 |plain| for f32 inputs, 1e-4 for
+    bf16 and f16 ones; two launches give the same bits;
   resize (f32) <= 1e-5 + 1e-5 |plain|;
   lstm, lstm stash forward (f32, 828 steps): h_last, h_all, c_all <= 1e-4;
   lstm backward (f32): dx_proj <= 1e-4 + 1e-4 |plain|;
   lstm dW (f32, a sum of B * T terms, 13,248 at B = 16):
     <= 1e-4 + 1e-3 max|plain|;
-  golden fixture, bf16 against f32: <= 3e-2 (the port's bf16 forward on
-    the CPU is 6.4e-3 from it, on outputs up to 0.85);
+  golden fixtures, bf16 against f32: <= 3e-2 (the port's bf16 forward on
+    the CPU is 6.4e-3 from the U-Net's, on outputs up to 0.85);
   serving path, kernels vs plain versions, bf16 end to end: the output's max
     difference <= 5% of its largest magnitude (rounding flips of one bf16
     ulp in the conv and resize outputs, carried through 18 convs);
@@ -62,6 +96,12 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
     backward runs in bf16 with bf16 interpolation weights, as JAX's does,
     where autograd through the plain version runs in f32; and cuDNN's
     backward sums in no fixed order).
+  evaluation batch, kernels vs plain versions, bf16 forward: MAE, RMSE and
+    the per-class ones within 1e-2 relative (means over thousands of pixels
+    of one-ulp flips), the Laplacian variances within 5e-2 (a second
+    difference amplifies the flips), NaN and ``class_present`` in the same
+    places;
+  pair configuration vs two launches per block: as the serving path, 5%.
 TF32 is off for cuDNN and matmuls, so the plain versions run in full f32.
 """
 
@@ -81,14 +121,18 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 T_SERIES = 828
 # The LSTM lengths of phase 3's training-batch checks of E, F and dW.
 TRAIN_LENGTHS = [828, 828, 700, 600, 414, 300, 100, 1, 0, 827, 828, 500, 828, 64, 828, 2]
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "tests", "fixtures", "golden_unet.npz")
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 GOLDEN_TOL = 3e-2
+# The H100's published peaks (SXM, dense): device memory and tensor-core or
+# plain f32 rates, by the type a kernel computes in.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
@@ -114,10 +158,14 @@ class KernelTable:
         self.rows: dict[str, dict] = {}
 
     def check(self, name: str, label: str, kernel, plain, atol: float,
-              rtol: float, on_path: bool = False) -> None:
+              rtol: float, on_path: bool, work, library=None) -> float:
         """Compare ``kernel()`` with ``plain()`` (a tensor, or a tuple of
-        tensors compared one by one); a shape of the kernel's own path
-        (``on_path``) also enters the kernel's summary row."""
+        tensors compared one by one) and return the kernel's time.  ``work``
+        = (bytes moved, operations, their type) gives the bound, and
+        ``library`` is the one PyTorch call that computes the same function,
+        or None where there is none.  A shape of the path that the summary
+        line reads for this kernel (``on_path``) also enters its summary
+        row."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -130,140 +178,349 @@ class KernelTable:
             ok &= bool(torch.isfinite(a).all()) and bool(
                 (diff <= atol + rtol * b.float().abs()).all())
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        nbytes, flops, kind = work
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[kind] * 1e3
+        library_ms = None if library is None else cuda_ms(library)
         print(f"kernel {name} {label}{' [path]' if on_path else ''}: "
               f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
               f"tol=({atol:g} + {rtol:g}|plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"bound_ms={max(bytes_ms, ops_ms):.4f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) library_ms="
+              + ("none" if library_ms is None else f"{library_ms:.4f}")
+              + (" ok" if ok else " FAIL"))
         if not ok:
             raise AssertionError(f"{name} {label} disagrees with its plain version")
         if not on_path:
-            return
-        row = self.rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+            return ms
+        row = self.rows.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0,
+            "library_ms": None if library is None else 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
+        row["bound_ms"] += max(bytes_ms, ops_ms)
+        row["bytes_ms"] += bytes_ms
+        row["ops_ms"] += ops_ms
+        if library is not None:
+            row["library_ms"] += library_ms
+        return ms
+
+    def summary(self, name: str) -> dict:
+        """The kernel's row of the summary line; ``bound_by`` says which of
+        the two summed times is the larger."""
+        row = dict(self.rows[name])
+        row["bound_by"] = "bytes" if row.pop("bytes_ms") >= row.pop("ops_ms") else "operations"
+        return row
+
+
+def conv_work(b: int, hw, cins, cout: int, with_add: bool):
+    """One fused conv's bytes (bf16 parts and output, f32 weights, scale,
+    bias and add, each once) and operations (bf16 multiply-adds)."""
+    h, w = hw
+    cin = sum(cins)
+    nbytes = (b * h * w * (cin + cout) * 2 + 9 * cin * cout * 4 + 2 * cout * 4
+              + (b * 3 * w * cout * 4 if with_add else 0))
+    return nbytes, 2 * b * h * w * 9 * cin * cout, "bf16"
+
+
+def cudnn_block(parts, convs, add):
+    """The library yardstick of the conv kernels: for each (weights, scale,
+    bias) of ``convs`` a cuDNN bf16 conv over the concatenated parts with its
+    epilogue (bias, the first conv's ``add``, ReLU).  The weights are folded
+    and laid out once, outside the timed call, as a deployed model would."""
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    folded = []
+    for weights, scale, bias in convs:
+        wt = (torch.cat(list(weights), 1) * scale[:, None, None, None]).to(torch.bfloat16)
+        folded.append((wt.contiguous(memory_format=torch.channels_last),
+                       bias.to(torch.bfloat16)))
+    if add is not None:
+        add = (add * convs[0][1]).to(torch.bfloat16)
+
+    def run():
+        x = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+        for i, (wt, bias) in enumerate(folded):
+            y = F.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=1).permute(0, 2, 3, 1)
+            if i == 0 and add is not None:
+                y = y + packed_vgg.expand_add(add, y.shape[1])
+            x = torch.relu(y)
+        return x
+
+    return run
+
+
+# The VGGBlocks that take the pair kernel at B = 8, 256²: ((H, W), conv1's
+# spatial parts, width, with the embedding term).  U-Net (base 64): conv0_0,
+# conv0_1.  U-Net++ (base 32): conv0_0-conv0_4 at 256², conv1_0-conv1_3 at 128².
+PAIR_BLOCKS = (
+    [((256, 256), (23,), 64, False), ((256, 256), (64, 128), 64, False)]
+    + [((256, 256), (23,), 32, False)]
+    + [((256, 256), (32,) * j + (64,), 32, True) for j in (1, 2, 3, 4)]
+    + [((128, 128), (32,), 64, False)]
+    + [((128, 128), (64,) * j + (128,), 64, True) for j in (1, 2, 3)])
+
+
+# Every distinct fused conv of a U-Net++ (base 32) forward, 18 launches in
+# all: conv1 of each PAIR_BLOCKS block, and the conv2 of each level.
+UNETPP_CONVS = ([(hw, cins, width, with_add)
+                 for hw, cins, width, with_add in PAIR_BLOCKS[2:]]
+                + [((256, 256), (32,), 32, False), ((128, 128), (64,), 64, False)])
+EVAL_BATCH = 16
+# LSTM lengths of phase 3's evaluation-batch check of B: the synthetic split
+# draws each sample's from T/2..T.
+EVAL_LENGTHS = [828, 414, 700, 512, 621, 799, 450, 828, 733, 580, 666, 415, 777, 502, 640, 811]
 
 
 def check_kernels(table: KernelTable, dev) -> None:
-    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+    from maunet_tpu_torch.ops.kernels import lstm, masked_stats, packed_vgg, resize_pack
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, dtype=torch.float32, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
+    def conv_params(cins, cout):
+        fan_in = 9 * sum(cins)
+        return ([randn(cout, c, 3, 3, std=math.sqrt(2 / fan_in)) for c in cins],
+                0.5 + torch.rand(cout, generator=g, device=dev), randn(cout, std=0.1))
+
     # A: the level-0 convs (conv0_0.conv1 reads the 23 input channels as they
     # are; conv0_1.conv1 reads the [64 skip | 128 upsampled] concat) at the
     # predict_many batch (B=8), at B=2, and at B=1 on a 250² tile as predict
     # serves it; then the compact embedding term, and two odd sizes (the
-    # second with two output-channel tiles).
+    # second with two output-channel tiles); then every distinct conv of one
+    # evaluation batch (B=16): the U-Net's three, and U-Net++'s eleven (each
+    # block's conv1, with the embedding term at the decoder nodes, and the
+    # conv2 of each level).
     bf = torch.bfloat16
     level0 = [(23,), (64,), (64, 128)]
-    # (batch, (H, W), input parts' channels, cout, with add, on the path)
-    a_cases = ([(8, (256, 256), cins, 64, False, True) for cins in level0]
-               + [(2, (256, 256), cins, 64, False, False) for cins in level0]
-               + [(1, (250, 250), cins, 64, False, False) for cins in level0]
-               + [(2, (256, 256), (64,), 64, True, False),
-                  (2, (125, 125), (23, 40), 48, True, False),
-                  (2, (33, 47), (16,), 80, True, False)])
-    for b, hw, cins, cout, with_add, on_path in a_cases:
+    # (batch, (H, W), input parts' channels, cout, with add, on the path, note)
+    a_cases = ([(8, (256, 256), cins, 64, False, True, "") for cins in level0]
+               + [(2, (256, 256), cins, 64, False, False, "") for cins in level0]
+               + [(1, (250, 250), cins, 64, False, False, "") for cins in level0]
+               + [(2, (256, 256), (64,), 64, True, False, ""),
+                  (2, (125, 125), (23, 40), 48, True, False, ""),
+                  (2, (33, 47), (16,), 80, True, False, "")]
+               + [(EVAL_BATCH, (256, 256), cins, 64, False, False, " evaluation U-Net")
+                  for cins in level0]
+               + [(EVAL_BATCH, hw, cins, width, with_add, False, " evaluation U-Net++")
+                  for hw, cins, width, with_add in UNETPP_CONVS])
+    for b, hw, cins, cout, with_add, on_path, note in a_cases:
         parts = [randn(b, *hw, c, dtype=bf) for c in cins]
-        fan_in = 9 * sum(cins)
-        weights = [randn(cout, c, 3, 3, std=math.sqrt(2 / fan_in)) for c in cins]
-        scale = 0.5 + torch.rand(cout, generator=g, device=dev)
-        bias = randn(cout, std=0.1)
+        weights, scale, bias = conv_params(cins, cout)
         add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
         kw = dict(scale=scale, bias=bias, add=add, relu=True)
         table.check("conv3x3_fused", f"{[(b, *hw, c) for c in cins]}->{cout}"
-                    f"{' +add' if with_add else ''}",
+                    f"{' +add' if with_add else ''}{note}",
                     lambda: packed_vgg.conv3x3_fused(parts, weights, **kw),
                     lambda: packed_vgg.conv3x3_fused_plain(parts, weights, **kw),
-                    1e-2, 1e-2, on_path)
+                    1e-2, 1e-2, on_path, conv_work(b, hw, cins, cout, with_add),
+                    cudnn_block(parts, [(weights, scale, bias)], add))
+
+    # G: every eligible block of the pair configuration at B=8, against its
+    # plain version, against the two A launches it replaces, and beside
+    # cuDNN's two convs; then two odd sizes with narrow, unequal widths.
+    g_cases = ([(8, hw, cins, width, width, with_add, True)
+                for hw, cins, width, with_add in PAIR_BLOCKS]
+               + [(2, (125, 125), (23, 40), 48, 40, True, False),
+                  (2, (33, 47), (16,), 20, 7, True, False)])
+    for b, hw, cins, cmid, cout, with_add, on_path in g_cases:
+        parts = [randn(b, *hw, c, dtype=bf) for c in cins]
+        w1, scale1, bias1 = conv_params(cins, cmid)
+        (w2,), scale2, bias2 = conv_params((cmid,), cout)
+        add = randn(b, 3, hw[1], cmid, std=0.5) if with_add else None
+        kw = dict(scale1=scale1, bias1=bias1, scale2=scale2, bias2=bias2, add=add)
+
+        def two_launches():
+            mid = packed_vgg.conv3x3_fused(parts, w1, scale=scale1, bias=bias1,
+                                           add=add, relu=True)
+            return packed_vgg.conv3x3_fused([mid], [w2], scale=scale2, bias=bias2, relu=True)
+
+        n1, f1, _ = conv_work(b, hw, cins, cmid, with_add)
+        n2, f2, _ = conv_work(b, hw, (cmid,), cout, False)
+        mid_bytes = 2 * b * hw[0] * hw[1] * cmid * 2     # never written, never read
+        label = (f"{[(b, *hw, c) for c in cins]}->{cmid}->{cout}"
+                 f"{' +add' if with_add else ''}")
+        ms = table.check("conv3x3_pair_fused", label,
+                         lambda: packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw),
+                         lambda: packed_vgg.conv3x3_pair_fused_plain(parts, w1, w2, **kw),
+                         2e-2, 2e-2, on_path, (n1 + n2 - mid_bytes, f1 + f2, "bf16"),
+                         cudnn_block(parts, [(w1, scale1, bias1), ([w2], scale2, bias2)], add))
+        got, chained = packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw), two_launches()
+        diff = (got.float() - chained.float()).abs()
+        ok = bool((diff <= 2e-2 + 2e-2 * chained.float().abs()).all())
+        print(f"kernel conv3x3_pair_fused {label} vs two conv3x3_fused launches: "
+              f"max_abs_diff={float(diff.max()):.3e} ms={ms:.4f} "
+              f"two_launches_ms={cuda_ms(two_launches):.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"conv3x3_pair_fused {label} disagrees with two launches")
+
+    # D: the evaluation batch; one 250² tile; bf16 inputs; a map with absent
+    # classes; one with class values outside 0..8, which count nowhere; then
+    # the other channel counts and f16, which the evaluator does not send.
+    def class_map(*shape, absent=(), outside=False):
+        dw = torch.randint(0, 9, shape, generator=g, device=dev, dtype=torch.int32)
+        for k in absent:
+            dw[dw == k] = (k + 1) % 9
+        if outside:
+            dw[0, :5] = 11
+            dw[-1, 5:7] = -3
+        return dw
+
+    for shape, dtype, tol, absent, outside, on_path in [
+            ((16, 256, 256, 2), torch.float32, 5e-5, (), False, True),
+            ((1, 250, 250, 2), torch.float32, 5e-5, (), False, False),
+            ((16, 256, 256, 2), bf, 1e-4, (), False, False),
+            ((4, 50, 50, 2), torch.float32, 5e-5, (3, 8), False, False),
+            ((4, 50, 50, 2), torch.float32, 5e-5, (), True, False),
+            ((2, 50, 50, 3), torch.float16, 1e-4, (), False, False),
+            ((2, 33, 47, 4), torch.float32, 5e-5, (5,), False, False),
+            ((2, 125, 125, 1), bf, 1e-4, (), False, False)]:
+        pred, target = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        dw = class_map(*shape[:3], absent=absent, outside=outside)
+        pixels = shape[0] * shape[1] * shape[2]
+        c = shape[3]
+        work = (pixels * (2 * c * pred.element_size() + 4) + shape[0] * (2 * c + 1) * 9 * 4,
+                pixels * (5 * c + 1), "f32")
+        table.check("masked_class_sums",
+                    f"{shape} {str(dtype).split('.')[-1]}"
+                    f"{' absent ' + str(absent) if absent else ''}"
+                    f"{' with classes outside 0..8' if outside else ''}",
+                    lambda: masked_stats.masked_class_sums(pred, target, dw),
+                    lambda: masked_stats.masked_class_sums_plain(pred, target, dw),
+                    tol, tol, on_path, work, None)
+        first, second = (masked_stats.masked_class_sums(pred, target, dw) for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError("masked_class_sums: two launches on the same inputs differ")
+        counted = float(first[2].sum())
+        inside = float(((dw >= 0) & (dw < 9)).sum())
+        if counted != inside or any(float(first[2][:, k].sum()) for k in absent):
+            raise AssertionError(f"masked_class_sums: counted {counted} of {inside} pixels")
 
     # B: the temporal encoder's recurrence at the predict_many batch with
-    # mixed lengths, and at B=1 (predict).
+    # mixed lengths, at B=1 (predict) and at the evaluation batch.  Its bound counts the steps this
+    # batch's lengths need; the library call is cuDNN's LSTM over the raw
+    # series at full length (what batch_max masking runs).
     hidden = 96
+    gates = 4 * hidden
 
     def lstm_case(lens):
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        x_proj = randn(len(lens), T_SERIES, 4 * hidden, std=0.5)
-        w_hh = (torch.rand((hidden, 4 * hidden), generator=g, device=dev) * 2 - 1) / math.sqrt(hidden)
-        return lens, x_proj, w_hh, f"({len(lens)}, {T_SERIES}, {4 * hidden}) lengths={lens.tolist()}"
+        x_proj = randn(len(lens), T_SERIES, gates, std=0.5)
+        w_hh = (torch.rand((hidden, gates), generator=g, device=dev) * 2 - 1) / math.sqrt(hidden)
+        return lens, x_proj, w_hh, f"({len(lens)}, {T_SERIES}, {gates}) lengths={lens.tolist()}"
 
-    for lens, on_path in [([828, 828, 600, 414, 100, 1, 0, 827], True), ([828], False)]:
+    cudnn_lstm = torch.nn.LSTM(1, hidden, batch_first=True).to(dev)
+    for lens, on_path in [([828, 828, 600, 414, 100, 1, 0, 827], True), ([828], False),
+                          (EVAL_LENGTHS, False)]:
+        steps = sum(lens)
         lens, x_proj, w_hh, label = lstm_case(lens)
-        table.check("lstm_last_hidden", label,
-                    lambda: lstm.lstm_last_hidden(x_proj, w_hh, lens),
-                    lambda: lstm.lstm_last_hidden_scan(x_proj, w_hh, lens), 1e-4, 0.0,
-                    on_path)
+        series = randn(len(lens), T_SERIES, 1)
+        with torch.no_grad():
+            table.check("lstm_last_hidden", label,
+                        lambda: lstm.lstm_last_hidden(x_proj, w_hh, lens),
+                        lambda: lstm.lstm_last_hidden_scan(x_proj, w_hh, lens), 1e-4, 0.0,
+                        on_path,
+                        (steps * gates * 4 + hidden * gates * 4 + len(lens) * hidden * 4,
+                         steps * (2 * hidden * gates + 10 * gates), "f32"),
+                        lambda: cudnn_lstm(series)[1][0])
 
     # E, F and dW: the training batch (B=16, the trainer's default) with
     # mixed lengths, and B=1.  F and dW read the plain version's stash, so
-    # both sides see the same inputs; the plain F also forms dW.
+    # both sides see the same inputs; the plain F also forms dW.  E and F
+    # have no single library call; dW's is the plain version's einsum.
     for lens, on_path in [(TRAIN_LENGTHS, True), ([828], False)]:
+        steps, rows = sum(lens), len(lens) * T_SERIES
         lens, x_proj, w_hh, label = lstm_case(lens)
         grad = randn(len(lens), hidden)
+        weight_bytes = hidden * gates * 4
         table.check("lstm_forward_stash", label,
                     lambda: lstm.lstm_forward_stash(x_proj, w_hh, lens),
                     lambda: lstm.lstm_forward_stash_plain(x_proj, w_hh, lens), 1e-4, 0.0,
-                    on_path)
+                    on_path,
+                    (steps * gates * 4 + weight_bytes + 2 * rows * hidden * 4,
+                     steps * (2 * hidden * gates + 10 * gates), "f32"), None)
         _, h_all, c_all = lstm.lstm_forward_stash_plain(x_proj, w_hh, lens)
         table.check("lstm_backward", label,
                     lambda: lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad),
                     lambda: lstm.lstm_backward_plain(x_proj, w_hh, lens, h_all, c_all, grad)[0],
-                    1e-4, 1e-4, on_path)
+                    1e-4, 1e-4, on_path,
+                    (steps * (gates + 2 * hidden) * 4 + weight_bytes + rows * gates * 4,
+                     steps * (4 * hidden * gates + 20 * gates), "f32"), None)
         dx = lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad)
         want = lstm.lstm_dw_plain(h_all, dx, lens)
         table.check("lstm_dw", label, lambda: lstm.lstm_dw(h_all, dx, lens),
                     lambda: lstm.lstm_dw_plain(h_all, dx, lens),
-                    1e-4 + 1e-3 * float(want.abs().max()), 0.0, on_path)
+                    1e-4 + 1e-3 * float(want.abs().max()), 0.0, on_path,
+                    (steps * (gates + hidden) * 4 + weight_bytes,
+                     steps * 2 * hidden * gates, "f32"),
+                    lambda: lstm.lstm_dw_plain(h_all, dx, lens))
         if not torch.equal(lstm.lstm_dw(h_all, dx, lens), lstm.lstm_dw(h_all, dx, lens)):
             raise AssertionError("lstm_dw: two launches on the same inputs differ")
 
-    # C: the four decoder upsamples at B=8, two of them at the training
-    # batch (B=16); the bottleneck's double
-    # interpolation of a 250² tile at B=1 (15 -> 30, then the odd fix-up
-    # 30 -> 31); one f32 case and one channel count that takes the kernel's
+    # C: the four decoder upsamples at B=8, and at the training and
+    # evaluation batch (B=16); U-Net++'s (base 32) four at the evaluation
+    # batch; the bottleneck's double interpolation of a 250² tile at B=1
+    # (15 -> 30, then the odd fix-up 30 -> 31); U-Net++'s single odd resize
+    # (12 -> 25); one f32 case and one channel count that takes the kernel's
     # one-channel-per-thread path.
     for shape, out_hw, dtype, tol, on_path in [
             ((8, 16, 16, 1024), (32, 32), bf, 1e-2, True),
             ((8, 32, 32, 512), (64, 64), bf, 1e-2, True),
             ((8, 64, 64, 256), (128, 128), bf, 1e-2, True),
             ((8, 128, 128, 128), (256, 256), bf, 1e-2, True),
-            ((16, 16, 16, 1024), (32, 32), bf, 1e-2, False),   # the training batch
+            ((16, 16, 16, 1024), (32, 32), bf, 1e-2, False),
+            ((16, 32, 32, 512), (64, 64), bf, 1e-2, False),
+            ((16, 64, 64, 256), (128, 128), bf, 1e-2, False),
             ((16, 128, 128, 128), (256, 256), bf, 1e-2, False),
+            ((16, 16, 16, 512), (32, 32), bf, 1e-2, False),    # U-Net++
+            ((16, 32, 32, 256), (64, 64), bf, 1e-2, False),
+            ((16, 64, 64, 128), (128, 128), bf, 1e-2, False),
+            ((16, 128, 128, 64), (256, 256), bf, 1e-2, False),
             ((1, 15, 15, 1024), (30, 30), bf, 1e-2, False),
             ((1, 30, 30, 1024), (31, 31), bf, 1e-2, False),
+            ((2, 12, 12, 64), (25, 25), bf, 1e-2, False),
             ((2, 15, 15, 64), (30, 30), torch.float32, 1e-5, False),
             ((2, 15, 15, 3), (30, 31), bf, 1e-2, False)]:
         x = randn(*shape, dtype=dtype)
+        n_out = shape[0] * out_hw[0] * out_hw[1] * shape[3]
         table.check("resize_pack", f"{shape}->{out_hw} {str(dtype).split('.')[-1]}",
                     lambda: resize_pack.resize_pack(x, out_hw),
-                    lambda: resize_pack.resize_pack_plain(x, out_hw), tol, tol, on_path)
+                    lambda: resize_pack.resize_pack_plain(x, out_hw), tol, tol, on_path,
+                    ((x.numel() + n_out) * x.element_size(), 8 * n_out, "f32"),
+                    lambda: F.interpolate(x.permute(0, 3, 1, 2), size=out_hw,
+                                          mode="bilinear", align_corners=True))
 
 
 def check_golden(dev) -> None:
-    """The port's U-Net on the card against the JAX package's recorded
-    output (``tests/fixtures/golden_unet.npz``: 50² tiles, base 4, lengths
-    40 and 25).  At base 4 every conv runs kernel A, the bottleneck's with
-    the embedding term, and the odd 50 -> 25 -> 12 chain runs C's fix-ups."""
+    """The port's U-Net and U-Net++ on the card against the JAX package's
+    recorded outputs (``tests/fixtures/golden_unet.npz`` and
+    ``golden_unetpp.npz``: 50² tiles, base 4).  At base 4 every conv runs
+    kernel A, with the embedding term at the U-Net's bottleneck and at every
+    U-Net++ decoder node, and the odd 50 -> 25 -> 12 chain runs C's fix-ups
+    (U-Net) and single odd resizes (U-Net++)."""
     from maunet_tpu_torch.interop.from_jax import state_dict_from_jax, variables_from_flat
     from maunet_tpu_torch.interop.torch_import import infer_hyperparams
     from maunet_tpu_torch.models.factory import build_model
 
-    with np.load(GOLDEN) as z:
-        state_dict = state_dict_from_jax(variables_from_flat(z))
-        inputs = [torch.from_numpy(z[k]).to(dev) for k in ("maps", "series", "meta", "lengths")]
-        expected = z["expected"]
-    model = build_model(infer_hyperparams(state_dict))
-    model.load_state_dict(state_dict, strict=True)
-    with torch.inference_mode():
-        got = model.to(dev)(*inputs).cpu().numpy()
-    err = float(np.abs(got - expected).max())
-    print(f"golden fixture (bf16 on the card vs the f32 JAX output): "
-          f"max_abs_err={err:.4e} tol={GOLDEN_TOL:g}")
-    if got.shape != expected.shape or not err <= GOLDEN_TOL:
-        raise AssertionError("the port disagrees with golden_unet.npz")
+    for model_type, name in [("unet", "golden_unet.npz"), ("unet++", "golden_unetpp.npz")]:
+        with np.load(os.path.join(FIXTURES, name)) as z:
+            state_dict = state_dict_from_jax(variables_from_flat(z))
+            inputs = [torch.from_numpy(z[k]).to(dev)
+                      for k in ("maps", "series", "meta", "lengths")]
+            expected = z["expected"]
+        model = build_model(infer_hyperparams(state_dict, {"model_type": model_type}))
+        model.load_state_dict(state_dict, strict=True)
+        with torch.inference_mode():
+            got = model.to(dev)(*inputs).cpu().numpy()
+        err = float(np.abs(got - expected).max())
+        print(f"golden fixture {name} (bf16 on the card vs the f32 JAX output): "
+              f"max_abs_err={err:.4e} tol={GOLDEN_TOL:g}")
+        if got.shape != expected.shape or not err <= GOLDEN_TOL:
+            raise AssertionError(f"the port disagrees with {name}")
 
 
 def randomize_(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -322,20 +579,35 @@ def check_outputs(label: str, ndvi: np.ndarray, lst: np.ndarray, hw: int) -> Non
         raise AssertionError(f"{label}: NDVI outside [-1, 1]")
 
 
-def serving_path(dev, tmpdir: str) -> dict[str, int]:
-    from maunet_tpu_torch.apps.engine import CANVAS_RGB, PlannerEngine
-    from maunet_tpu_torch.models.factory import build_model
-    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+# The two full-width models: the serving U-Net (bench.py:80-82) and U-Net++
+# at its reference width (maunet_tpu/benchmarks.py:86-88).
+FULL_WIDTH = {
+    "unet": {"model_type": "unet", "base_filters": 64},
+    "unet++": {"model_type": "unet++", "base_filters": 32},
+}
 
-    hp = {"model_type": "unet", "base_filters": 64, "temporal_dim": 64,
-          "meta_dim": 64, "lstm_hidden": 96, "temporal_embeddings": True,
+
+def write_checkpoint(tmpdir: str, model_type: str) -> str:
+    """A reference-layout ``.pth`` of the full-width model with seeded random
+    weights and BatchNorm statistics."""
+    from maunet_tpu_torch.models.factory import build_model
+
+    hp = {**FULL_WIDTH[model_type], "temporal_dim": 64, "meta_dim": 64,
+          "lstm_hidden": 96, "temporal_embeddings": True,
           "metadata_embeddings": True, "metadata_input_length": 8}
     model = build_model(hp, lstm_mask_mode="batch_max")
     randomize_(model, torch.Generator().manual_seed(SEED))
-    path = os.path.join(tmpdir, "unet64.pth")
+    path = os.path.join(tmpdir, f"{model_type}_full_width.pth")
     torch.save({"model_state_dict": model.state_dict(), "hyperparameters": hp,
-                "model_type": "unet", "metadata_input_length": 8}, path)
-    del model
+                "model_type": model_type, "metadata_input_length": 8,
+                "trial_id": 0}, path)
+    return path
+
+
+def serving_path(dev, path: str) -> dict[str, int]:
+    from maunet_tpu_torch.apps.engine import CANVAS_RGB, PlannerEngine
+    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+
     engine = PlannerEngine(path, device=dev, temp_query=StubTempQuery(),
                            temporal_length=T_SERIES)
     rng = np.random.default_rng(SEED)
@@ -406,40 +678,53 @@ def serving_path(dev, tmpdir: str) -> dict[str, int]:
 
 def wrappers() -> dict:
     """Every kernel wrapper, by name; each counts its launches."""
-    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+    from maunet_tpu_torch.ops.kernels import lstm, masked_stats, packed_vgg, resize_pack
 
     return {fn.__name__: fn for fn in (
         packed_vgg.conv3x3_fused, lstm.lstm_last_hidden, resize_pack.resize_pack,
-        lstm.lstm_forward_stash, lstm.lstm_backward, lstm.lstm_dw)}
+        lstm.lstm_forward_stash, lstm.lstm_backward, lstm.lstm_dw,
+        masked_stats.masked_class_sums, packed_vgg.conv3x3_pair_fused)}
 
 
-TRAIN_SAMPLES = {"train": 48, "val": 16}
+def reset_launches() -> dict:
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
 
 
-def train_path(dev, tmpdir: str) -> dict[str, int]:
+# The synthetic split every path reads: training takes train and val,
+# evaluation test (40 samples in batches of 16: the last batch is padded).
+SAMPLES = {"train": 48, "val": 16, "test": 40}
+
+
+def make_data(tmpdir: str) -> str:
+    from maunet_tpu_torch.data.synthetic import generate_dataset
+
+    t0 = time.perf_counter()
+    data = generate_dataset(os.path.join(tmpdir, "data"), SAMPLES, hw=256,
+                            temporal_len=T_SERIES, seed=SEED)
+    print(f"synthetic data: {SAMPLES} samples of 256², T = {T_SERIES}, "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
     """Phase 6: ``Trainer`` at the default full-width config, one epoch and
     a resumed second, then the kernels-vs-plain step, serving the result and
     the step time."""
     from maunet_tpu_torch.apps.engine import PlannerEngine
     from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
     from maunet_tpu_torch.data.pipeline import host_tensors, to_device
-    from maunet_tpu_torch.data.synthetic import generate_dataset
     from maunet_tpu_torch.losses import get_loss_fn
     from maunet_tpu_torch.ops.kernels import lstm, resize_pack
     from maunet_tpu_torch.train.config import TrainConfig
     from maunet_tpu_torch.train.loop import Trainer
     from maunet_tpu_torch.train.steps import train_step
 
-    t0 = time.perf_counter()
-    data = generate_dataset(os.path.join(tmpdir, "data"), TRAIN_SAMPLES, hw=256,
-                            temporal_len=T_SERIES, seed=SEED)
-    print(f"training data: {TRAIN_SAMPLES} samples of 256², T = {T_SERIES}, "
-          f"in {time.perf_counter() - t0:.1f} s")
     cfg = TrainConfig(frequency_log=1)
     work = os.path.join(tmpdir, "train")
-    fns = wrappers()
-    for fn in fns.values():
-        fn.launches = 0
+    fns = reset_launches()
     t0 = time.perf_counter()
     r1 = Trainer(cfg, data, work_dir=work, study_name="smoke", device=dev).train(epochs=1)
     trainer = Trainer(cfg, data, work_dir=work, study_name="smoke", device=dev)
@@ -447,7 +732,7 @@ def train_path(dev, tmpdir: str) -> dict[str, int]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in fns.items()}
-    steps_per_epoch = TRAIN_SAMPLES["train"] // cfg.batch_size
+    steps_per_epoch = SAMPLES["train"] // cfg.batch_size
     with open(os.path.join(work, "smoke_trial0_train_log.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(v) for r in rows for k, v in r.items() if "loss" in k]
@@ -469,7 +754,9 @@ def train_path(dev, tmpdir: str) -> dict[str, int]:
     if not (launches["lstm_forward_stash"] == launches["lstm_backward"]
             == launches["lstm_dw"] == steps):
         raise AssertionError(f"training path: E, F and dW must launch once per step ({steps})")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in ("lstm_forward_stash", "lstm_backward", "lstm_dw",
+                                 "resize_pack", "conv3x3_fused", "lstm_last_hidden")
+               if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the training path: {missing}")
 
@@ -518,6 +805,178 @@ def train_path(dev, tmpdir: str) -> dict[str, int]:
     return launches
 
 
+def unetpp_train(dev, tmpdir: str, data: str) -> None:
+    """One epoch of a deep-supervised U-Net++ at its reference width through
+    ``Trainer``: the train-mode blocks and the four heads' averaged loss."""
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.train.loop import Trainer
+
+    cfg = TrainConfig(model_type="unet++", base_filters=32, deep_supervision=True,
+                      frequency_log=1)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, data, work_dir=os.path.join(tmpdir, "train_unetpp"),
+                      study_name="smoke-pp", device=dev)
+    result = trainer.train(epochs=1)
+    torch.cuda.synchronize()
+    h = result.history[0]
+    print(f"training U-Net++ (base 32, deep supervision): {trainer.state.step} steps in "
+          f"{time.perf_counter() - t0:.1f} s, train loss {h['train_loss']:.5f}, "
+          f"val loss {h['val_loss']:.5f}")
+    if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])
+            and trainer.state.step == SAMPLES["train"] // cfg.batch_size
+            and result.best_checkpoint and os.path.exists(result.best_checkpoint)):
+        raise AssertionError("U-Net++ training: a loss is not finite or a step is missing")
+
+
+def eval_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str]) -> dict[str, int]:
+    """Phase 7: ``evaluate_checkpoint`` on the card for both model families."""
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.data.schema import NormalizationStats
+    from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
+    from maunet_tpu_torch.evaluate.evaluator import batch_metrics, evaluate_checkpoint
+    from maunet_tpu_torch.evaluate.metrics import dw_map_from_input
+    from maunet_tpu_torch.ops.kernels import lstm, masked_stats, packed_vgg, resize_pack
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.utils.dw import DW_CLASSES
+
+    n_test = SAMPLES["test"]
+    ds = NpzDataset(os.path.join(data, "test"), T_SERIES)
+    present = [{DW_CLASSES[int(k)] for k in dw_map_from_input(
+        torch.from_numpy(ds[i]["maps"][None])).unique()} for i in range(n_test)]
+    out_dir = os.path.join(tmpdir, "reports")
+    total: dict[str, int] = {}
+    for model_type, path in checkpoints.items():
+        fns = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = evaluate_checkpoint(path, TrainConfig(), data_dir=data, study_name="smoke",
+                                   jobid="1", n_visualize=0, output_dir=out_dir,
+                                   batch_size=EVAL_BATCH, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fns.items()}
+        report = os.path.join(out_dir, f"smoke_{model_type}_emb_0_job1_evaluation.csv")
+        if not (os.path.exists(report)
+                and os.path.exists(report.replace("_evaluation.csv", "_info.csv"))):
+            raise AssertionError(f"evaluation path: {report} was not written")
+        with open(report, newline="") as f:
+            written = list(csv.DictReader(f))
+        if len(written) != len(rows):
+            raise AssertionError("evaluation path: the CSV and the returned rows differ")
+        if sorted({int(r["sample_idx"]) for r in written}) != list(range(n_test)):
+            raise AssertionError("evaluation path: not every test sample has rows")
+        for i in range(n_test):
+            mine = [r for r in written if int(r["sample_idx"]) == i]
+            overall = [r for r in mine if r["dw_class"] == "overall"]
+            finite = all(math.isfinite(float(r[k])) for r in mine for k in ("mae", "rmse"))
+            for channel in ("after_ndvi", "after_temp"):
+                classes = {r["dw_class"] for r in mine
+                           if r["channel"] == channel and r["dw_class"] != "overall"}
+                if classes != present[i]:
+                    raise AssertionError(f"evaluation path: sample {i} has class rows "
+                                         f"{sorted(classes)}, its map has {sorted(present[i])}")
+            if len(overall) != 2 or not finite:
+                raise AssertionError(f"evaluation path: sample {i} lacks two finite overall rows")
+        print(f"evaluation path {model_type}: {n_test} samples, {len(rows)} rows in "
+              f"{wall:.2f} s, {n_test / wall:.1f} tiles/s on {torch.cuda.get_device_name(0)} "
+              f"(host clock; checkpoint load, data decode and the CSV included), "
+              f"launches={launches}")
+        missing = [name for name in ("conv3x3_fused", "lstm_last_hidden", "resize_pack",
+                                     "masked_class_sums") if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the evaluation path: {missing}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+        # One batch's metrics with the kernels and with the plain versions.
+        loaded = load_any_checkpoint(path, device=dev)
+        stats = NormalizationStats.from_json(os.path.join(data, "normalization_metrics.json"))
+        batch = to_device(host_tensors(next(make_batches(ds, EVAL_BATCH)),
+                                       pin=dev.type == "cuda"), dev)
+        got, _, _ = batch_metrics(loaded.model, batch, stats, 8)
+        with mock.patch.object(packed_vgg, "conv3x3_fused", packed_vgg.conv3x3_fused_plain), \
+                mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
+                mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain), \
+                mock.patch.object(masked_stats, "masked_class_sums",
+                                  masked_stats.masked_class_sums_plain):
+            want, _, _ = batch_metrics(loaded.model, batch, stats, 8)
+        worst = {}
+        for k, tol in [("mae", 1e-2), ("rmse", 1e-2), ("class_mae", 1e-2),
+                       ("class_rmse", 1e-2), ("lap_var_pred", 5e-2), ("lap_var_gt", 5e-2)]:
+            a, b = got[k].double(), want[k].double()
+            if not torch.equal(a.isnan(), b.isnan()):
+                raise AssertionError(f"evaluation batch: {k} has NaN in other places")
+            rel = ((a - b).abs() / b.abs().clamp_min(1e-12))[~b.isnan()]
+            worst[k] = float(rel.max())
+            if not worst[k] <= tol:
+                raise AssertionError(f"evaluation batch: {k} differs by {worst[k]:.3e} "
+                                     f"(tol {tol:g}) from the plain versions")
+        if not torch.equal(got["class_present"], want["class_present"]):
+            raise AssertionError("evaluation batch: class_present differs")
+        print(f"evaluation batch {model_type}, kernels vs plain versions, max relative "
+              f"difference: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+              + " (tol 1e-2; Laplacian variances 5e-2)")
+    return total
+
+
+# Blocks whose two convs both take the fused kernel (width <= 64) at full
+# width: conv0_0 and conv0_1; conv0_0-conv0_4 and conv1_0-conv1_3.
+PAIR_ELIGIBLE = {"unet": 2, "unet++": 9}
+
+
+def pair_path(dev, checkpoints: dict[str, str]) -> dict[str, int]:
+    """Phase 8: both models with ``fuse_pair=True`` against ``fuse_pair=False``."""
+    from maunet_tpu_torch.interop.torch_import import load_torch_checkpoint
+    from maunet_tpu_torch.models.factory import build_model
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    inputs = [torch.randn((8, 256, 256, 23), generator=g, device=dev),
+              torch.randn((8, T_SERIES), generator=g, device=dev),
+              torch.randn((8, 8), generator=g, device=dev),
+              torch.tensor([828, 828, 600, 414, 100, 1, 0, 827], dtype=torch.int32, device=dev)]
+    total: dict[str, int] = {}
+    for model_type, path in checkpoints.items():
+        state_dict, hp, _ = load_torch_checkpoint(path)
+        models = {}
+        for fuse_pair in (False, True):
+            model = build_model(hp, lstm_mask_mode="batch_max", fuse_pair=fuse_pair)
+            model.load_state_dict(state_dict, strict=True)
+            models[fuse_pair] = model.to(dev)
+
+        def forward(fuse_pair):
+            with torch.inference_mode():
+                return models[fuse_pair](*inputs)
+
+        want = forward(False)
+        fns = reset_launches()
+        got = forward(True)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in fns.items()}
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not bool(torch.isfinite(got).all()) or diff > 0.05 * max(scale, 1.0):
+            raise AssertionError(f"pair configuration {model_type}: the output differs by "
+                                 f"{diff:.3e} from the fuse_pair=False forward")
+        if launches["conv3x3_pair_fused"] != PAIR_ELIGIBLE[model_type]:
+            raise AssertionError(
+                f"pair configuration {model_type}: {launches['conv3x3_pair_fused']} pair "
+                f"launches, {PAIR_ELIGIBLE[model_type]} blocks are eligible")
+        # In turns (off, on, on, off): the forward is bound by the host's
+        # dispatch, whose speed drifts within a run.
+        ms = {False: [], True: []}
+        for fuse_pair in (False, True, True, False):
+            ms[fuse_pair].append(cuda_ms(lambda: forward(fuse_pair)))
+        print(f"pair configuration {model_type} (8 x 256², bf16): fuse_pair=True "
+              f"{ms[True][0]:.3f} and {ms[True][1]:.3f} ms, fuse_pair=False "
+              f"{ms[False][0]:.3f} and {ms[False][1]:.3f} ms per forward (CUDA events, "
+              f"medians of 10, in turns off, on, on, off); max_abs_diff={diff:.3e} on "
+              f"outputs up to {scale:.3f}; launches={launches}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -530,6 +989,10 @@ KERNEL_INFO = {
     "lstm_backward": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:334", "training"),
     # the dW sum that the TPU backward keeps in its body (lstm.py:266)
     "lstm_dw": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:334", "training"),
+    "masked_class_sums": ("maunet_tpu_torch/csrc/masked_stats.cu",
+                          "maunet_tpu/ops/pallas/masked_stats.py:60", "evaluation"),
+    "conv3x3_pair_fused": ("maunet_tpu_torch/csrc/conv3x3_pair.cu",
+                           "maunet_tpu/ops/pallas/packed_vgg.py:373", "pair"),
 }
 
 
@@ -559,10 +1022,16 @@ def main() -> int:
     check_kernels(table, dev)
     check_golden(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
-        launches = {"serving": serving_path(dev, tmpdir), "training": train_path(dev, tmpdir)}
+        checkpoints = {m: write_checkpoint(tmpdir, m) for m in FULL_WIDTH}
+        data = make_data(tmpdir)
+        launches = {"serving": serving_path(dev, checkpoints["unet"]),
+                    "training": train_path(dev, tmpdir, data)}
+        unetpp_train(dev, tmpdir, data)
+        launches["evaluation"] = eval_path(dev, tmpdir, data, checkpoints)
+        launches["pair"] = pair_path(dev, checkpoints)
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[path][name], **table.rows[name]}
+                "launches": launches[path][name], **table.summary(name)}
                for name, (src, replaces, path) in KERNEL_INFO.items()]
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

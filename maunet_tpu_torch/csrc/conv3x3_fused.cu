@@ -17,71 +17,24 @@
 // direct implicit GEMM, right and simple first:
 //   * a block owns 128 output pixels (flattened over B*H*W, so any H and W,
 //     odd ones included) x 64 output channels;
-//   * the K loop runs over parts x 9 taps x 32-channel slices of cin; each
-//     step stages the shifted input rows (zero outside the image or past
-//     cin, so any cin is taken; 16-byte loads where cin % 8 == 0 and the
-//     part is 16-byte aligned, 2-byte loads else) and the weight slice in
-//     shared memory, with rows padded to 40 bf16 so the fragment loads are
-//     free of bank conflicts;
-//   * the next step's global loads are issued into registers before the
-//     current step's mma.sync.m16n8k16 (bf16 in, f32 accumulate) run, so
-//     their latency overlaps the tensor-core work;
+//   * the K loop over parts x 9 taps x 32-channel slices of cin, staged
+//     through shared memory into mma.sync.m16n8k16 (bf16 in, f32 accumulate),
+//     is conv_mma.cuh's conv_accumulate, shared with the pair kernel;
 //   * four warps each hold a 32 x 64 f32 accumulator tile in registers; the
 //     epilogue adds `add` and `bias`, applies ReLU and stores bf16.
 // No wgmma or TMA yet: a pipelined warp-specialised version is later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "conv_mma.cuh"
 
 namespace {
 
-constexpr int kMaxParts = 5;
-constexpr int BM = 128;       // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // input channels per K step
-constexpr int LDS = BK + 8;   // shared row stride in bf16
-constexpr int kThreads = 128;
-
 struct ConvArgs {
-  const uint16_t* x[kMaxParts];   // (B, H, W, cin_p) bf16
-  const uint16_t* w[kMaxParts];   // (9, cout, cin_p) bf16
-  int cin[kMaxParts];
-  int vec[kMaxParts];             // 16-byte loads: cin % 8 == 0, aligned
-  int nparts;
+  ConvIn in;
   const float* add;               // (B, 3, W, cout) or null
   const float* bias;              // (cout,) or null
   __nv_bfloat16* out;             // (B, H, W, cout)
   int B, H, W, cout;
   int relu;
 };
-
-// Up to 8 consecutive bf16 from `src`; elements at or past `count` are zero.
-// `vec` says the 16-byte load is aligned.
-__device__ __forceinline__ uint4 load8(const uint16_t* src, int count, bool vec) {
-  if (count >= 8 && vec) return *reinterpret_cast<const uint4*>(src);
-  union {
-    uint4 u;
-    uint16_t h[8];
-  } r;
-  r.u = make_uint4(0, 0, 0, 0);
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (e < count) r.h[e] = src[e];
-  return r.u;
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fused_kernel(const __grid_constant__ ConvArgs a) {
@@ -94,9 +47,6 @@ conv3x3_fused_kernel(const __grid_constant__ ConvArgs a) {
   const long long mbase = static_cast<long long>(blockIdx.x) * BM;
   const int nbase = blockIdx.y * BN;
 
-  // This thread stages 8 channels (slot v) of 4 pixels for A, and 8 channels
-  // of 2 output channels for B.
-  const int v = tid & 3;
   int pn[4], py[4], px[4];
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -112,93 +62,12 @@ conv3x3_fused_kernel(const __grid_constant__ ConvArgs a) {
     }
   }
 
-  int nsteps = 0;
-  for (int q = 0; q < a.nparts; ++q) nsteps += 9 * ((a.cin[q] + BK - 1) / BK);
-
-  uint4 ra[4], rb[2];
-  auto load_step = [&](int p, int tap, int c0) {
-    const int cin = a.cin[p];
-    const bool vec = a.vec[p] != 0;
-    const int c = c0 + v * 8;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const uint16_t* x = a.x[p];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int ys = py[s] + dy, xs = px[s] + dx;
-      const bool ok = pn[s] >= 0 && ys >= 0 && ys < H && xs >= 0 && xs < W && c < cin;
-      const uint16_t* src =
-          ok ? x + ((static_cast<long long>(pn[s]) * H + ys) * W + xs) * cin + c : x;
-      ra[s] = load8(src, ok ? cin - c : 0, vec);
-    }
-    const uint16_t* w = a.w[p];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int idx = s * kThreads + tid;
-      const int co = nbase + (idx >> 2);
-      const int cw = c0 + (idx & 3) * 8;
-      const bool ok = co < cout && cw < cin;
-      const uint16_t* src =
-          ok ? w + (static_cast<long long>(tap) * cout + co) * cin + cw : w;
-      rb[s] = load8(src, ok ? cin - cw : 0, vec);
-    }
-  };
-
   float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  zero_acc(acc);
+  conv_accumulate(a.in, H, W, cout, nbase, pn, py, px, As, Bs, acc);
 
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-
-  int p = 0, tap = 0, c0 = 0;
-  load_step(p, tap, c0);
-  for (int step = 0; step < nsteps; ++step) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-      *reinterpret_cast<uint4*>(&As[(s * 32 + (tid >> 2)) * LDS + v * 8]) = ra[s];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int idx = s * kThreads + tid;
-      *reinterpret_cast<uint4*>(&Bs[(idx >> 2) * LDS + (idx & 3) * 8]) = rb[s];
-    }
-    __syncthreads();
-
-    c0 += BK;
-    if (c0 >= a.cin[p]) {
-      c0 = 0;
-      if (++tap == 9) {
-        tap = 0;
-        ++p;
-      }
-    }
-    if (step + 1 < nsteps) load_step(p, tap, c0);
-
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp * 32 + mt * 16 + g;
-        af[mt][0] = lds32(&As[r * LDS + ks + t4 * 2]);
-        af[mt][1] = lds32(&As[(r + 8) * LDS + ks + t4 * 2]);
-        af[mt][2] = lds32(&As[r * LDS + ks + t4 * 2 + 8]);
-        af[mt][3] = lds32(&As[(r + 8) * LDS + ks + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + g;
-        const uint32_t b0 = lds32(&Bs[n * LDS + ks + t4 * 2]);
-        const uint32_t b1 = lds32(&Bs[n * LDS + ks + t4 * 2 + 8]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
 
   // Epilogue.  Accumulator element e of tile (mt, nt) sits at pixel row
   // g + 8 * (e / 2) and channel column 2 * t4 + e % 2 of the 16 x 8 tile.
@@ -249,21 +118,9 @@ extern "C" int maunet_conv3x3_fused(const void* xs, const void* ws,
                                     const void* add, const void* bias, void* out,
                                     int B, int H, int W, int cout, int relu,
                                     void* stream) {
-  if (nparts < 1 || nparts > kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a;
-  const void* const* xp = static_cast<const void* const*>(xs);
-  const void* const* wp = static_cast<const void* const*>(ws);
-  const int* cp = static_cast<const int*>(cins);
-  for (int q = 0; q < kMaxParts; ++q) {
-    a.x[q] = q < nparts ? static_cast<const uint16_t*>(xp[q]) : nullptr;
-    a.w[q] = q < nparts ? static_cast<const uint16_t*>(wp[q]) : nullptr;
-    a.cin[q] = q < nparts ? cp[q] : 0;
-    if (q < nparts && a.cin[q] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    a.vec[q] = q < nparts && a.cin[q] % 8 == 0 &&
-               reinterpret_cast<uintptr_t>(a.x[q]) % 16 == 0 &&
-               reinterpret_cast<uintptr_t>(a.w[q]) % 16 == 0;
-  }
-  a.nparts = nparts;
+  const cudaError_t bad = fill_conv_in(a.in, xs, ws, cins, nparts);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
   a.add = static_cast<const float*>(add);
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<__nv_bfloat16*>(out);

@@ -56,6 +56,10 @@ class NpzDataset:
     def __len__(self) -> int:
         return len(self.files)
 
+    def get_metadata_from_idx(self, idx: int) -> dict:
+        info = parse_sample_filename(self.files[idx])
+        return {"city": info["city"], "lat": info["lat"], "lon": info["lon"]}
+
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
         path = self.files[idx]
         info = parse_sample_filename(path)

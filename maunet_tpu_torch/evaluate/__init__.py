@@ -1,1 +1,1 @@
-"""Checkpoint loading for inference."""
+"""Checkpoint loading, on-device metrics and the checkpoint evaluator."""

@@ -26,8 +26,9 @@ class LoadedModel:
 
 def load_any_checkpoint(path: str, study_name: str = "",
                         compute_dtype: torch.dtype = torch.bfloat16,
-                        device: str | torch.device = "cpu") -> LoadedModel:
-    """Load a reference ``.pth`` file into an eval-mode model on ``device``."""
+                        device: str | torch.device = "cuda") -> LoadedModel:
+    """Load a reference ``.pth`` file into an eval-mode model on ``device``
+    (the card unless the caller asks for the CPU)."""
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
             f"{path!r} is not a .pth/.pt file; orbax checkpoint directories "

@@ -18,8 +18,8 @@ Two structural points carry over from the JAX module:
 
 Which convs run the fused kernel is a function of the output width alone
 (:func:`uses_fused_kernel`).  Lane packing (``Packed``, ``BatchNormPacked``,
-``PackedConv1x1``, ``_ConvParams``, the pair path) is a TPU layout device and
-is not ported.
+``PackedConv1x1``, ``_ConvParams``) is a TPU layout device and is not
+ported; the whole-block pair kernel is, on plain NHWC (``VGGBlock.fuse_pair``).
 """
 
 from __future__ import annotations
@@ -70,22 +70,25 @@ def const_conv(emb: torch.Tensor, kernel: torch.Tensor, h: int, w: int,
                         torch.from_numpy(_border_mask(w)).to(dev), out)
 
 
-def bn_affine(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
+def bn_affine(conv: nn.Conv2d, bn: nn.BatchNorm2d | None
+              ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """Eval BatchNorm after a biased conv as one f32 (scale, bias) pair:
     ``a = gamma / sqrt(var + eps)``, ``b = beta - mean * a + conv_bias * a``
-    (JAX ``BatchNormPacked.affine`` and ``_fold_bias``)."""
+    (JAX ``BatchNormPacked.affine`` and ``_fold_bias``).  Without a BatchNorm
+    (``bn_fused``: it is folded into the conv already) the scale is the
+    identity, ``None``, and the bias is the conv's."""
+    if bn is None:
+        return None, conv.bias.float()
     a = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
     b = bn.bias.float() - bn.running_mean.float() * a
     return a, b + conv.bias.float() * a
 
 
-def conv_bn_relu(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
-                 bn: nn.BatchNorm2d, compute_dtype: torch.dtype) -> torch.Tensor:
-    """relu(BN(conv3x3(concat(parts)))) without building the concat.
-
-    Spatial parts are NHWC at the block's (H, W); (B, 1, 1, D) parts are
-    broadcast embeddings.  Returns (B, H, W, out) NHWC-contiguous in
-    ``compute_dtype``."""
+def split_parts(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
+                compute_dtype: torch.dtype, contiguous: bool = True):
+    """The block's (H, W); its spatial parts in ``compute_dtype`` with their
+    slices of the conv weight; and its broadcast embeddings, (B, 1, 1, D)
+    parts while the block is larger, each with its slice."""
     hw = next((tuple(p.shape[1:3]) for p in parts if tuple(p.shape[1:3]) != (1, 1)),
               tuple(parts[0].shape[1:3]))
     spatial, weights, bcast = [], [], []
@@ -97,23 +100,43 @@ def conv_bn_relu(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
         if tuple(p.shape[1:3]) == (1, 1) and hw != (1, 1):
             bcast.append((p, wt))
         else:
-            spatial.append(p.to(compute_dtype).contiguous())
+            p = p.to(compute_dtype)
+            spatial.append(p.contiguous() if contiguous else p)
             weights.append(wt)
+    return hw, spatial, weights, bcast
+
+
+def embedding_add(bcast, hw: tuple[int, int]) -> torch.Tensor | None:
+    """The fused kernels' compact ``add``: the closed-form conv of every
+    broadcast embedding, summed, or ``None`` without one."""
+    add = None
+    for e, wt in bcast:
+        term = const_conv(e, wt, *hw, compact_h=True)
+        add = term if add is None else add + term
+    return add
+
+
+def conv_bn_relu(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
+                 bn: nn.BatchNorm2d | None, compute_dtype: torch.dtype) -> torch.Tensor:
+    """relu(BN(conv3x3(concat(parts)))) without building the concat.
+
+    Spatial parts are NHWC at the block's (H, W); (B, 1, 1, D) parts are
+    broadcast embeddings.  Returns (B, H, W, out) NHWC-contiguous in
+    ``compute_dtype``."""
+    hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype)
     scale, bias = bn_affine(conv, bn)
     if uses_fused_kernel(conv.out_channels):
-        add = None
-        for e, wt in bcast:
-            term = const_conv(e, wt, *hw, compact_h=True)
-            add = term if add is None else add + term
         return pvgg.conv3x3_fused(spatial, weights, scale=scale, bias=bias,
-                                  add=add, relu=True)
+                                  add=embedding_add(bcast, hw), relu=True)
     x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
     wt = torch.cat(weights, dim=1).to(compute_dtype).contiguous(
         memory_format=torch.channels_last)
     y = F.conv2d(x.permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1).float()
     for e, wt in bcast:
         y = y + const_conv(e, wt, *hw)
-    return torch.relu(y * scale + bias).to(compute_dtype).contiguous()
+    if scale is not None:
+        y = y * scale
+    return torch.relu(y + bias).to(compute_dtype).contiguous()
 
 
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -143,19 +166,8 @@ def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
     :func:`const_conv`.  The conv bias is detached, as JAX
     ``stop_gradient``s it: batch-statistics BN cancels it exactly.  BN in
     f32, ReLU, then a cast to ``compute_dtype``."""
-    hw = next((tuple(p.shape[1:3]) for p in parts if tuple(p.shape[1:3]) != (1, 1)),
-              tuple(parts[0].shape[1:3]))
-    spatial, weights, bcast = [], [], []
-    off = 0
-    for p in parts:
-        c = p.shape[-1]
-        wt = conv.weight[:, off:off + c]
-        off += c
-        if tuple(p.shape[1:3]) == (1, 1) and hw != (1, 1):
-            bcast.append((p, wt))
-        else:
-            spatial.append(p.to(compute_dtype))
-            weights.append(wt)
+    hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype,
+                                              contiguous=False)
     x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
     wt = torch.cat(weights, dim=1) if len(weights) > 1 else weights[0]
     y = F.conv2d(x.permute(0, 3, 1, 2),
@@ -172,22 +184,47 @@ class VGGBlock(nn.Module):
 
     Attribute names (conv1/bn1/conv2/bn2) match the reference state_dict.
     ``forward`` takes the input as a list of parts (see :func:`conv_bn_relu`).
+
+    ``bn_fused``: inference with BatchNorm already folded into the conv
+    weights (``models/fuse.fold_batchnorm``): the block has no ``bn1``/``bn2``
+    and runs conv -> ReLU (JAX blocks.py:501-505).  ``fuse_pair``: in eval
+    mode a block whose two convs both take the fused kernel runs as one
+    launch of the pair kernel instead of two (JAX blocks.py:462-471,554-581;
+    off by default, as there).
     """
 
     def __init__(self, in_channels: int, middle_channels: int,
-                 out_channels: int, compute_dtype: torch.dtype = torch.bfloat16):
+                 out_channels: int, compute_dtype: torch.dtype = torch.bfloat16,
+                 bn_fused: bool = False, fuse_pair: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.fuse_pair = fuse_pair
         self.conv1 = nn.Conv2d(in_channels, middle_channels, 3, padding=1)
-        self.bn1 = nn.BatchNorm2d(middle_channels, eps=1e-5)
+        self.bn1 = None if bn_fused else nn.BatchNorm2d(middle_channels, eps=1e-5)
         self.conv2 = nn.Conv2d(middle_channels, out_channels, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.bn2 = None if bn_fused else nn.BatchNorm2d(out_channels, eps=1e-5)
+
+    def takes_pair_kernel(self) -> bool:
+        return (self.fuse_pair and not self.training
+                and uses_fused_kernel(self.conv1.out_channels)
+                and uses_fused_kernel(self.conv2.out_channels))
 
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         cd = self.compute_dtype
-        step = conv_bn_relu_train if self.training else conv_bn_relu
-        x = step(list(parts), self.conv1, self.bn1, cd)
-        return step([x], self.conv2, self.bn2, cd)
+        if self.training:
+            if self.bn1 is None:
+                raise RuntimeError("bn_fused is an inference-only mode")
+            x = conv_bn_relu_train(list(parts), self.conv1, self.bn1, cd)
+            return conv_bn_relu_train([x], self.conv2, self.bn2, cd)
+        if self.takes_pair_kernel():
+            hw, spatial, weights, bcast = split_parts(list(parts), self.conv1, cd)
+            scale1, bias1 = bn_affine(self.conv1, self.bn1)
+            scale2, bias2 = bn_affine(self.conv2, self.bn2)
+            return pvgg.conv3x3_pair_fused(
+                spatial, weights, self.conv2.weight, scale1=scale1, bias1=bias1,
+                scale2=scale2, bias2=bias2, add=embedding_add(bcast, hw))
+        x = conv_bn_relu(list(parts), self.conv1, self.bn1, cd)
+        return conv_bn_relu([x], self.conv2, self.bn2, cd)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,7 @@
 
 Port of ``maunet_tpu/models/factory.py`` (reference ``UrbanPredictor``,
 src/model.py:295-329).  The facade holds the network as ``.model``, so its
-state_dict carries the reference's ``model.`` key prefix.  Only the U-Net is
-ported; U-Net++ is later work (ROADMAP.md).
+state_dict carries the reference's ``model.`` key prefix.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from maunet_tpu_torch.models.unet import MetaUNet
+from maunet_tpu_torch.models.unetpp import MetaUNetPP
 
 MODEL_TYPES = ("unet", "unet++")
 
@@ -32,33 +32,39 @@ class UrbanPredictor(nn.Module):
                  temporal_embeddings: bool = True,
                  metadata_embeddings: bool = True,
                  lstm_mask_mode: str = "per_sample",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 deep_supervision: bool = False, bn_fused: bool = False,
+                 fuse_pair: bool = False):
         super().__init__()
-        if model_type == "unet++":
-            raise NotImplementedError(
-                "U-Net++ is not ported to PyTorch yet; see ROADMAP.md "
-                "(modules still to port)")
-        if model_type != "unet":
+        if model_type not in MODEL_TYPES:
             raise ValueError(f"Unsupported model_type: {model_type!r} "
                              f"(expected one of {MODEL_TYPES})")
         self.model_type = model_type
-        self.model = MetaUNet(
+        kw = dict(
             in_channels=in_channels, out_channels=out_channels,
             temporal_dim=temporal_dim, meta_dim=meta_dim, lstm_dim=lstm_dim,
             base_filters=base_filters, meta_features=meta_features,
             temporal_embeddings=temporal_embeddings,
             metadata_embeddings=metadata_embeddings,
-            lstm_mask_mode=lstm_mask_mode, compute_dtype=compute_dtype)
+            lstm_mask_mode=lstm_mask_mode, compute_dtype=compute_dtype,
+            bn_fused=bn_fused, fuse_pair=fuse_pair)
+        if model_type == "unet":   # deep supervision is a U-Net++ option
+            self.model = MetaUNet(**kw)
+        else:
+            self.model = MetaUNetPP(deep_supervision=deep_supervision, **kw)
 
     def forward(self, maps: torch.Tensor, temp_series: torch.Tensor,
                 metadata: torch.Tensor,
-                temp_lengths: torch.Tensor | None = None) -> torch.Tensor:
+                temp_lengths: torch.Tensor | None = None):
+        """(B, H, W, out_channels) f32; a deep-supervised U-Net++ returns its
+        four heads' outputs as a tuple."""
         return self.model(maps, temp_series, metadata, temp_lengths)
 
 
 def build_model(hyperparams: dict[str, Any], *, out_channels: int = 2,
                 lstm_mask_mode: str = "per_sample",
-                compute_dtype: torch.dtype = torch.bfloat16) -> UrbanPredictor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                bn_fused: bool = False, fuse_pair: bool = False) -> UrbanPredictor:
     """Build a model (in eval mode) from a checkpoint hyperparameter dict.
 
     Defaults follow the reference evaluator (temporal_dim=16, meta_dim=8,
@@ -80,5 +86,8 @@ def build_model(hyperparams: dict[str, Any], *, out_channels: int = 2,
         metadata_embeddings=bool(hyperparams.get("metadata_embeddings", True)),
         lstm_mask_mode=lstm_mask_mode,
         compute_dtype=compute_dtype,
+        deep_supervision=bool(hyperparams.get("deep_supervision", False)),
+        bn_fused=bn_fused,
+        fuse_pair=fuse_pair,
     )
     return model.eval()

@@ -31,7 +31,8 @@ class MetaUNet(nn.Module):
                  meta_features: int = 8, temporal_embeddings: bool = True,
                  metadata_embeddings: bool = True,
                  lstm_mask_mode: str = "per_sample",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 bn_fused: bool = False, fuse_pair: bool = False):
         super().__init__()
         self.out_channels = out_channels
         self.compute_dtype = compute_dtype
@@ -51,7 +52,8 @@ class MetaUNet(nn.Module):
             self.meta_encoder = MetadataEncoder(meta_features, meta_dim,
                                                 compute_dtype=compute_dtype)
             emb += meta_dim
-        vgg = lambda cin, cout: VGGBlock(cin, cout, cout, compute_dtype)
+        vgg = lambda cin, cout: VGGBlock(cin, cout, cout, compute_dtype,
+                                         bn_fused=bn_fused, fuse_pair=fuse_pair)
         self.conv0_0 = vgg(in_channels, nb[0])
         self.conv1_0 = vgg(nb[0], nb[1])
         self.conv2_0 = vgg(nb[1], nb[2])

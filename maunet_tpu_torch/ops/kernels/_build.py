@@ -40,7 +40,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):   # sources and the .cuh they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmaunet_kernels_{digest.hexdigest()[:16]}.so"

@@ -1,16 +1,20 @@
-"""Fused 3x3 conv over a virtual channel concat: CUDA kernel and its plain
-version.
+"""Fused 3x3 convs over a virtual channel concat: the CUDA kernels and their
+plain versions.
 
-Port of ``maunet_tpu/ops/pallas/packed_vgg.py::packed_conv3x3_fused`` on plain
-NHWC tensors: the TPU kernel's lane packing (``pack``, ``pack_weights``,
-``s``) is a layout device of the TPU's matrix unit and is not carried over.
-The kernel is ``csrc/conv3x3_fused.cu``; its header says what bounds it on
-the H100.  The whole-block pair kernel (``packed_pair_fused``) is not ported
-yet.
+Port of ``maunet_tpu/ops/pallas/packed_vgg.py`` on plain NHWC tensors: the
+TPU kernels' lane packing (``pack``, ``pack_weights``, ``s``) is a layout
+device of the TPU's matrix unit and is not carried over.
 
-Both versions compute ``relu?((sum_p conv3x3(x_p, w_p) + add) * scale +
-bias)`` with the scale folded into the weights and into ``add`` first, as
-``packed_vgg.py:480-487`` does, and round once to the parts' dtype.
+``conv3x3_fused`` (``packed_conv3x3_fused``, kernel ``csrc/conv3x3_fused.cu``)
+computes ``relu?((sum_p conv3x3(x_p, w_p) + add) * scale + bias)`` with the
+scale folded into the weights and into ``add`` first, as
+``packed_vgg.py:480-487`` does, and rounds once to the parts' dtype.
+
+``conv3x3_pair_fused`` (``packed_pair_fused``, kernel
+``csrc/conv3x3_pair.cu``) computes a whole VGGBlock, two such convs with
+ReLU, in one launch; the mid activation is rounded to the parts' dtype
+between them (``packed_vgg.py:359-360``) and never reaches device memory.
+Each kernel's header says what bounds it on the H100.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch.nn.functional as F
 from maunet_tpu_torch.ops.kernels import _build
 
 MAX_PARTS = 5
+# The widest mid and output the pair kernel takes (one 64-channel tile each).
+PAIR_MAX_CHANNELS = 64
 
 
 def _fold(weights: Sequence[torch.Tensor], scale: torch.Tensor | None,
@@ -71,6 +77,53 @@ def conv3x3_fused_plain(parts: Sequence[torch.Tensor],
     return y.to(dtype).contiguous()
 
 
+def _check_conv_inputs(what: str, parts: Sequence[torch.Tensor],
+                       weights: Sequence[torch.Tensor], add: torch.Tensor | None,
+                       **vectors: torch.Tensor | None) -> tuple[int, int, int, int]:
+    """What both kernels ask of a conv's inputs; returns (B, H, W, cout).
+    ``vectors`` are further tensors that must lie on the parts' device."""
+    _build.require(1 <= len(parts) <= MAX_PARTS, what,
+                   f"takes 1-{MAX_PARTS} parts, got {len(parts)}")
+    _build.require(len(weights) == len(parts), what, "one weight slice per part")
+    b, h, w = parts[0].shape[:3]
+    cout = weights[0].shape[0]
+    dev = parts[0].device
+    for p, wt in zip(parts, weights):
+        _build.require(p.dim() == 4 and tuple(p.shape[:3]) == (b, h, w), what,
+                       f"parts must share (B, H, W), got {tuple(p.shape)}")
+        _build.require(p.device == dev and p.dtype == torch.bfloat16, what,
+                       f"parts must be bf16 on {dev}, got {p.dtype} on {p.device}")
+        _build.require(p.is_contiguous(), what, "parts must be contiguous")
+        _build.require(tuple(wt.shape) == (cout, p.shape[3], 3, 3), what,
+                       f"weight {tuple(wt.shape)} does not match part "
+                       f"{tuple(p.shape)}")
+    for name, t in (*(("weight", wt) for wt in weights), ("add", add),
+                    *vectors.items()):
+        if t is not None:
+            _build.require(t.device == dev, what, f"{name} on {t.device}, not {dev}")
+    if add is not None:
+        _build.require(tuple(add.shape) == (b, 3, w, cout), what,
+                       f"add must be {(b, 3, w, cout)}, got {tuple(add.shape)}")
+    return b, h, w, cout
+
+
+def _kernel_weights(ws: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """(cout, cin_p, 3, 3) -> the kernels' (9, cout, cin_p): the input
+    channels of one tap and output channel are contiguous, as the kernels' K
+    slices read them."""
+    return [wt.permute(2, 3, 0, 1).reshape(9, wt.shape[0], -1).contiguous()
+            for wt in ws]
+
+
+def _pointer_arrays(parts: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]):
+    """Host arrays of the parts' and weights' device pointers and the parts'
+    channel counts, as the C entry points take them."""
+    xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+    wps = (ctypes.c_void_p * len(parts))(*(wt.data_ptr() for wt in ws))
+    cins = (ctypes.c_int * len(parts))(*(p.shape[3] for p in parts))
+    return xs, wps, cins
+
+
 def conv3x3_fused(parts: Sequence[torch.Tensor],
                   weights: Sequence[torch.Tensor], *,
                   scale: torch.Tensor | None = None,
@@ -95,38 +148,15 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
     # The kernel has no backward: train mode runs cuDNN convs
     # (models/blocks.conv_bn_relu_train).
     _build.require_no_grad(what, *parts, *weights, scale, bias, add)
-    _build.require(1 <= len(parts) <= MAX_PARTS, what,
-                   f"takes 1-{MAX_PARTS} parts, got {len(parts)}")
-    _build.require(len(weights) == len(parts), what, "one weight slice per part")
-    b, h, w = parts[0].shape[:3]
-    cout = weights[0].shape[0]
+    b, h, w, cout = _check_conv_inputs(what, parts, weights, add,
+                                       scale=scale, bias=bias)
     dev = parts[0].device
-    for p, wt in zip(parts, weights):
-        _build.require(p.dim() == 4 and tuple(p.shape[:3]) == (b, h, w), what,
-                       f"parts must share (B, H, W), got {tuple(p.shape)}")
-        _build.require(p.device == dev and p.dtype == torch.bfloat16, what,
-                       f"parts must be bf16 on {dev}, got {p.dtype} on {p.device}")
-        _build.require(p.is_contiguous(), what, "parts must be contiguous")
-        _build.require(tuple(wt.shape) == (cout, p.shape[3], 3, 3), what,
-                       f"weight {tuple(wt.shape)} does not match part "
-                       f"{tuple(p.shape)}")
-    for name, t in (*(("weight", wt) for wt in weights),
-                    ("scale", scale), ("bias", bias), ("add", add)):
-        if t is not None:
-            _build.require(t.device == dev, what, f"{name} on {t.device}, not {dev}")
-    if add is not None:
-        _build.require(tuple(add.shape) == (b, 3, w, cout), what,
-                       f"add must be {(b, 3, w, cout)}, got {tuple(add.shape)}")
     ws, add = _fold(weights, scale, add, torch.bfloat16)
-    # Kernel weight layout (9, cout, cin_p): the input channels of one tap
-    # and output channel are contiguous, as the kernel's K slices read them.
-    ws = [wt.permute(2, 3, 0, 1).reshape(9, cout, -1).contiguous() for wt in ws]
+    ws = _kernel_weights(ws)
     add = None if add is None else add.contiguous()
     bias = None if bias is None else bias.float().contiguous()
     out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
-    xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
-    wps = (ctypes.c_void_p * len(parts))(*(wt.data_ptr() for wt in ws))
-    cins = (ctypes.c_int * len(parts))(*(p.shape[3] for p in parts))
+    xs, wps, cins = _pointer_arrays(parts, ws)
     fn = _build.function("maunet_conv3x3_fused",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int]
                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
@@ -142,3 +172,82 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
 
 
 conv3x3_fused.launches = 0
+
+
+def conv3x3_pair_fused_plain(parts: Sequence[torch.Tensor],
+                             weights1: Sequence[torch.Tensor],
+                             weight2: torch.Tensor, *,
+                             scale1: torch.Tensor | None = None,
+                             bias1: torch.Tensor | None = None,
+                             scale2: torch.Tensor | None = None,
+                             bias2: torch.Tensor | None = None,
+                             add: torch.Tensor | None = None) -> torch.Tensor:
+    """Two chained :func:`conv3x3_fused_plain` calls with ReLU: the mid
+    activation is rounded to the parts' dtype between them."""
+    mid = conv3x3_fused_plain(parts, weights1, scale=scale1, bias=bias1,
+                              add=add, relu=True)
+    return conv3x3_fused_plain([mid], [weight2], scale=scale2, bias=bias2,
+                               relu=True)
+
+
+def conv3x3_pair_fused(parts: Sequence[torch.Tensor],
+                       weights1: Sequence[torch.Tensor],
+                       weight2: torch.Tensor, *,
+                       scale1: torch.Tensor | None = None,
+                       bias1: torch.Tensor | None = None,
+                       scale2: torch.Tensor | None = None,
+                       bias2: torch.Tensor | None = None,
+                       add: torch.Tensor | None = None) -> torch.Tensor:
+    """A whole VGGBlock: ``relu(conv3x3(relu(conv3x3(concat(parts)) ...)))``.
+
+    ``parts`` and ``weights1`` as :func:`conv3x3_fused` takes them, with
+    ``cmid`` output channels; ``weight2``: (cout, cmid, 3, 3); ``scale1``,
+    ``bias1`` (cmid,) and ``scale2``, ``bias2`` (cout,): each conv's epilogue
+    vectors; ``add``: conv1's compact (B, 3, W, cmid) pre-scale term.
+    Returns (B, H, W, cout) in the parts' dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which takes bf16 parts of any H, W and cin with cmid and cout up to 64.
+    """
+    what = "conv3x3_pair_fused"
+    kw = dict(scale1=scale1, bias1=bias1, scale2=scale2, bias2=bias2)
+    if _build.on_cpu(parts[0], what):
+        return conv3x3_pair_fused_plain(parts, weights1, weight2, add=add, **kw)
+    # No backward, as conv3x3_fused: train mode runs cuDNN convs.
+    _build.require_no_grad(what, *parts, *weights1, weight2, add, *kw.values())
+    b, h, w, cmid = _check_conv_inputs(what, parts, weights1, add,
+                                       weight2=weight2, **kw)
+    _build.require(weight2.dim() == 4 and tuple(weight2.shape[1:]) == (cmid, 3, 3),
+                   what, f"weight2 {tuple(weight2.shape)} does not follow a "
+                   f"{cmid}-channel mid")
+    cout = weight2.shape[0]
+    _build.require(cmid <= PAIR_MAX_CHANNELS and cout <= PAIR_MAX_CHANNELS, what,
+                   f"takes mid and output widths up to {PAIR_MAX_CHANNELS}, "
+                   f"got {cmid} and {cout}")
+    _build.require(b <= 65535, what, f"batch {b} exceeds the launch grid")
+    dev = parts[0].device
+    ws1, add = _fold(weights1, scale1, add, torch.bfloat16)
+    (w2,), _ = _fold([weight2], scale2, None, torch.bfloat16)
+    ws1 = _kernel_weights(ws1)
+    (w2,) = _kernel_weights([w2])
+    add = None if add is None else add.contiguous()
+    bias1 = None if bias1 is None else bias1.float().contiguous()
+    bias2 = None if bias2 is None else bias2.float().contiguous()
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
+    xs, wps, cins = _pointer_arrays(parts, ws1)
+    fn = _build.function("maunet_conv3x3_pair",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+    _build.check(fn(ctypes.addressof(xs), ctypes.addressof(wps),
+                    ctypes.addressof(cins), len(parts), w2.data_ptr(),
+                    None if add is None else add.data_ptr(),
+                    None if bias1 is None else bias1.data_ptr(),
+                    None if bias2 is None else bias2.data_ptr(),
+                    out.data_ptr(), b, h, w, cmid, cout,
+                    _build.stream_of(out)), what)
+    conv3x3_pair_fused.launches += 1
+    return out
+
+
+conv3x3_pair_fused.launches = 0

@@ -5,8 +5,8 @@ reads, flat, with the same defaults: ``TrainingConfig`` (reference
 conf/config.yaml:40-52), ``LoggingConfig.frequency_log``, ``seed``, and the
 dataset fields the loop needs.  A copy, because ``maunet_tpu.config``
 imports PyYAML.  Left out, with the features they configure (ROADMAP.md):
-``remat``, ``frequency_plt`` (prediction plots), ``deep_supervision`` (a
-U-Net++ option), ``keep_last_checkpoints`` (read by nothing) and the mesh.
+``remat``, ``frequency_plt`` (prediction plots), ``keep_last_checkpoints``
+(read by nothing) and the mesh.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ class TrainConfig:
     temporal_dim: int = 64
     weight_decay: float = 1e-3
     base_filters: int = 64
-    model_type: str = "unet"           # only unet is ported
+    model_type: str = "unet"           # unet | unet++
+    deep_supervision: bool = False     # U-Net++ only: four heads
     temporal_embeddings: bool = True
     metadata_embeddings: bool = True
     compute_dtype: str = "bfloat16"    # bfloat16 | float32
@@ -65,7 +66,7 @@ def hyperparams_from_config(cfg: TrainConfig) -> dict[str, Any]:
         "input_channels": ",".join(cfg.input_channels),
         "temporal_embeddings": cfg.temporal_embeddings,
         "metadata_embeddings": cfg.metadata_embeddings,
-        "deep_supervision": False,
+        "deep_supervision": cfg.deep_supervision,
         "optimizer": cfg.optimizer,
         "momentum": cfg.momentum,
         "gradient_clipping": cfg.gradient_clipping,

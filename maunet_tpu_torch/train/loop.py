@@ -49,9 +49,6 @@ class Trainer:
                  work_dir: str = "reports/training",
                  study_name: str = "urban-predictor", trial_id: int = 0,
                  device: str | torch.device = "cuda"):
-        if cfg.model_type != "unet":
-            raise NotImplementedError(
-                f"model_type {cfg.model_type!r}: only the U-Net is ported")
         self.cfg = cfg
         self.data_dir = data_dir
         self.work_dir = work_dir
@@ -92,7 +89,8 @@ class Trainer:
                 in_channels=in_channels, meta_features=cfg.nb_metadata_features,
                 temporal_embeddings=cfg.temporal_embeddings,
                 metadata_embeddings=cfg.metadata_embeddings,
-                compute_dtype=_DTYPES[cfg.compute_dtype])
+                compute_dtype=_DTYPES[cfg.compute_dtype],
+                deep_supervision=cfg.deep_supervision)
         model = model.to(self.device)
         opt = make_optimizer(model.parameters(), cfg.optimizer, cfg.learning_rate,
                              cfg.weight_decay, cfg.momentum)

@@ -10,6 +10,8 @@ gradient for every parameter that has none (the detached conv biases:
 optax updates every parameter, so their AdamW decay and Adam moments must
 run here too, and torch optimizers skip a parameter whose ``.grad`` is
 None), the global-norm clip, the optimizer update, and the step counter.
+A deep-supervised U-Net++ returns four heads: training averages each loss
+component over them, validation and inference read the last.
 """
 
 from __future__ import annotations
@@ -35,11 +37,31 @@ def metadata_full(batch: Batch, metadata_features: int) -> torch.Tensor:
     return batch["metadata"]
 
 
-def forward_fn(model: torch.nn.Module, batch: Batch,
-               metadata_features: int = 8) -> torch.Tensor:
-    """The model on a batch, in whatever mode the model is in: (B, H, W, C) f32."""
+def ds_loss(loss_fn: LossFn, outputs, targets: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Deep supervision: each loss component averaged over the heads (JAX
+    ``_ds_loss``); a single output passes through."""
+    if not isinstance(outputs, (tuple, list)):
+        return loss_fn(outputs, targets)
+    per_head = [loss_fn(o, targets) for o in outputs]
+    return {k: sum(d[k] for d in per_head) / len(per_head) for k in per_head[0]}
+
+
+def last_head(outputs) -> torch.Tensor:
+    return outputs[-1] if isinstance(outputs, (tuple, list)) else outputs
+
+
+def model_outputs(model: torch.nn.Module, batch: Batch, metadata_features: int = 8):
+    """The model on a batch, in whatever mode the model is in: (B, H, W, C)
+    f32, or a deep-supervised model's tuple of them."""
     return model(batch["maps"], batch["temp_series"],
                  metadata_full(batch, metadata_features), batch["temp_lengths"])
+
+
+def forward_fn(model: torch.nn.Module, batch: Batch,
+               metadata_features: int = 8) -> torch.Tensor:
+    """The model's prediction on a batch (the last head's, under deep
+    supervision): (B, H, W, C) f32 (JAX ``make_forward_fn``)."""
+    return last_head(model_outputs(model, batch, metadata_features))
 
 
 def train_step(state: TrainState, batch: Batch, loss_fn: LossFn, *,
@@ -49,8 +71,8 @@ def train_step(state: TrainState, batch: Batch, loss_fn: LossFn, *,
     ``grad_norm`` (the global norm before clipping) as device scalars."""
     model, opt = state.model, state.optimizer
     model.train()
-    outputs = forward_fn(model, batch, metadata_features)
-    losses = loss_fn(outputs, batch["targets"])
+    outputs = model_outputs(model, batch, metadata_features)
+    losses = ds_loss(loss_fn, outputs, batch["targets"])
     opt.zero_grad(set_to_none=True)
     losses["total"].backward()
     params = [p for group in opt.param_groups for p in group["params"]]

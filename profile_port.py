@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's U-Net on one CUDA card: the serving forward,
-or with ``--train`` one train step.
+"""Profile the PyTorch port on one CUDA card: the U-Net's serving forward,
+with ``--train`` one train step, or with ``--eval`` one evaluation batch of
+each model family.
 
     python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
+    python3 profile_port.py --eval [--trace PATH]    # default build/port_eval_trace.json
 
 The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
 (seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
@@ -25,6 +27,15 @@ The ``--train`` mode builds ``TrainConfig``'s default model and AdamW
 card, and prints the train step's time (host clock around synchronised
 steps, median of 10 after 3 warm-up steps) and, from a trace of 3 steps,
 the same busy-time split by family and idle share.
+
+The ``--eval`` mode builds ``chip_smoke.py``'s two full-width checkpoints (the
+U-Net at base 64 and U-Net++ at base 32), takes one batch of 16 synthetic
+256² samples with T = 828 on the card, and for each model prints the time of
+``evaluate.evaluator.batch_metrics`` (forward, un-normalisation and every
+metric; host clock around synchronised calls, median of 10 after 3 warm-up
+calls) and, from a trace of 3 calls, the busy-time split by family and the
+idle share.  The trace of the U-Net++ run goes beside the U-Net's with a
+``_unetpp`` suffix.
 
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
@@ -70,6 +81,16 @@ TRAIN_FAMILIES = (
     ("optimizer (multi-tensor apply)", ("multi_tensor_apply",)),
 )
 TRAIN_OTHER = "other torch ops (BN, casts, cat, pool, losses)"
+
+EVAL_FAMILIES = (
+    ("A conv3x3_fused", ("conv3x3_fused",)),
+    ("B lstm_last_hidden", ("lstm_last_hidden",)),
+    ("C resize_align_corners", ("resize_align_corners",)),
+    ("D masked_class_sums", ("masked_stats",)),
+    ("cuDNN convs (>= 128 channels)", ("xmma_fprop", "cudnn")),
+    ("GEMMs (encoders' dense layers)", ("gemm",)),
+)
+EVAL_OTHER = "other torch ops (epilogues, BN fold, cat, pool, means, Laplacian, argmax)"
 
 
 def family(name: str, families=FAMILIES, other: str = OTHER) -> str:
@@ -178,26 +199,70 @@ def train_profile(trace: str, dev: torch.device) -> None:
                     "train step", n, ms)
 
 
+def eval_profile(trace: str, dev: torch.device) -> None:
+    """``--eval``: one full-width evaluation batch per model family, timed
+    and traced."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.data.schema import NormalizationStats
+    from maunet_tpu_torch.data.synthetic import generate_dataset
+    from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
+    from maunet_tpu_torch.evaluate.evaluator import batch_metrics
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        data = generate_dataset(os.path.join(tmpdir, "data"), {"test": cs.EVAL_BATCH},
+                                hw=256, temporal_len=cs.T_SERIES, seed=cs.SEED)
+        ds = NpzDataset(os.path.join(data, "test"), cs.T_SERIES)
+        batch = to_device(host_tensors(next(make_batches(ds, cs.EVAL_BATCH)),
+                                       pin=dev.type == "cuda"), dev)
+        stats = NormalizationStats.from_json(os.path.join(data, "normalization_metrics.json"))
+        models = {m: load_any_checkpoint(cs.write_checkpoint(tmpdir, m), device=dev).model
+                  for m in cs.FULL_WIDTH}
+    for model_type, model in models.items():
+        def run():
+            batch_metrics(model, batch, stats, 8)
+
+        for _ in range(3):
+            run()
+        ms = host_ms(run, reps=10)
+        print(f"evaluation batch {model_type} ({cs.EVAL_BATCH} x 256², T = {cs.T_SERIES}, "
+              f"bf16; forward and metrics): {ms:.3f} ms, {cs.EVAL_BATCH / ms * 1e3:.1f} "
+              f"tiles/s (host clock around synchronised calls, median of 10)")
+        n = 3
+        path = trace if model_type == "unet" else trace.replace(".json", "_unetpp.json")
+        print_breakdown(profile_breakdown(run, n, path, EVAL_FAMILIES, EVAL_OTHER),
+                        f"evaluation batch ({model_type})", n, ms)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--train", action="store_true",
-                        help="profile one train step instead of the serving forward")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile one train step instead of the serving forward")
+    mode.add_argument("--eval", action="store_true",
+                      help="profile one evaluation batch of each model family")
     parser.add_argument("--trace", default=None,
                         help="where the Chrome trace is written (default: "
-                             "build/port_forward_trace.json, or build/port_train_trace.json)")
+                             "build/port_forward_trace.json, port_train_trace.json "
+                             "or port_eval_trace.json)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     trace = args.trace or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build",
-        "port_train_trace.json" if args.train else "port_forward_trace.json")
+        "port_train_trace.json" if args.train else
+        "port_eval_trace.json" if args.eval else "port_forward_trace.json")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         train_profile(trace, torch.device("cuda", 0))
+    elif args.eval:
+        eval_profile(trace, torch.device("cuda", 0))
     else:
         serve_profile(trace)
     return 0
@@ -208,21 +273,12 @@ def serve_profile(trace: str) -> None:
     import chip_smoke as cs
 
     from maunet_tpu_torch.apps.engine import PlannerEngine
-    from maunet_tpu_torch.models.factory import build_model
     from maunet_tpu_torch.ops.kernels import packed_vgg
 
     dev = torch.device("cuda", 0)
-    hp = {"model_type": "unet", "base_filters": 64, "temporal_dim": 64,
-          "meta_dim": 64, "lstm_hidden": 96, "temporal_embeddings": True,
-          "metadata_embeddings": True, "metadata_input_length": 8}
-    model = build_model(hp, lstm_mask_mode="batch_max")
-    cs.randomize_(model, torch.Generator().manual_seed(cs.SEED))
     with tempfile.TemporaryDirectory() as tmpdir:
-        path = os.path.join(tmpdir, "unet64.pth")
-        torch.save({"model_state_dict": model.state_dict(), "hyperparameters": hp,
-                    "model_type": "unet"}, path)
-        engine = PlannerEngine(path, device=dev, temp_query=cs.StubTempQuery(),
-                               temporal_length=cs.T_SERIES)
+        engine = PlannerEngine(cs.write_checkpoint(tmpdir, "unet"), device=dev,
+                               temp_query=cs.StubTempQuery(), temporal_length=cs.T_SERIES)
     rng = np.random.default_rng(cs.SEED)
     batch = [engine.prepare_input(cs.make_layers(rng, 256), None,
                                   float(rng.uniform(-60, 60)), float(rng.uniform(-180, 180)),

@@ -127,7 +127,7 @@ def test_loaded_model_matches_jax_f32(engines):
              for f in ("maps", "temp_series", "metadata", "temp_lengths")]
     jax_loaded = jax_load(path, compute_dtype=jnp.float32)
     ref = np.asarray(jax_loaded.model.apply(jax_loaded.variables, *batch))
-    port_loaded = load_any_checkpoint(path, compute_dtype=torch.float32)
+    port_loaded = load_any_checkpoint(path, compute_dtype=torch.float32, device="cpu")
     with torch.inference_mode():
         got = port_loaded.model(*(torch.from_numpy(np.ascontiguousarray(a))
                                   for a in batch)).numpy()

@@ -10,13 +10,13 @@ import pytest
 import torch
 
 from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
-from maunet_tpu_torch.ops.kernels import _build, lstm, packed_vgg, resize_pack
+from maunet_tpu_torch.ops.kernels import _build, lstm, masked_stats, packed_vgg, resize_pack
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "orbax", "yaml"):
+for name in ("jax", "flax", "optax", "orbax", "yaml", "pandas", "matplotlib"):
     sys.modules[name] = None          # any import of them raises ImportError
 import maunet_tpu_torch
 for mod in pkgutil.walk_packages(maunet_tpu_torch.__path__, "maunet_tpu_torch."):
@@ -38,13 +38,22 @@ TRAINING_MODULES = [
 ]
 
 
+# The evaluation path's and U-Net++'s modules, likewise.
+EVALUATION_MODULES = [
+    "maunet_tpu_torch.ops.kernels.masked_stats", "maunet_tpu_torch.evaluate.metrics",
+    "maunet_tpu_torch.evaluate.evaluator", "maunet_tpu_torch.evaluate.visualize",
+    "maunet_tpu_torch.evaluate.checkpoint", "maunet_tpu_torch.models.unetpp",
+    "maunet_tpu_torch.models.fuse", "maunet_tpu_torch.utils.dw",
+]
+
+
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 38
-    assert not set(TRAINING_MODULES) - imported
+    assert len(imported) >= 46
+    assert not set(TRAINING_MODULES + EVALUATION_MODULES) - imported
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):
@@ -53,6 +62,14 @@ def test_cuda_call_without_cuda_raises(tmp_path):
         pytest.skip("this host has CUDA; the check is for hosts without it")
     with pytest.raises((RuntimeError, AssertionError)):
         resize_pack.resize_pack(torch.zeros(1, 2, 2, 1, device="cuda"), (3, 3))
+    with pytest.raises((RuntimeError, AssertionError)):
+        masked_stats.masked_class_sums(torch.zeros(1, 2, 2, 2, device="cuda"),
+                                       torch.zeros(1, 2, 2, 2, device="cuda"),
+                                       torch.zeros(1, 2, 2, dtype=torch.int32, device="cuda"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        packed_vgg.conv3x3_pair_fused(
+            [torch.zeros(1, 2, 2, 2, dtype=torch.bfloat16, device="cuda")],
+            [torch.zeros(2, 2, 3, 3)], torch.zeros(2, 2, 3, 3))
     from maunet_tpu_torch.models.factory import build_model
     path = str(tmp_path / "m.pth")
     model = build_model({"base_filters": 4, "temporal_dim": 4, "meta_dim": 4,
@@ -61,6 +78,11 @@ def test_cuda_call_without_cuda_raises(tmp_path):
                 "hyperparameters": {"base_filters": 4}}, path)
     with pytest.raises((RuntimeError, AssertionError)):
         load_any_checkpoint(path, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        load_any_checkpoint(path)       # the card is the default
+    from maunet_tpu_torch.evaluate.evaluator import evaluate_checkpoint
+    with pytest.raises((RuntimeError, AssertionError)):
+        evaluate_checkpoint(path, data_dir=str(tmp_path), output_dir=str(tmp_path))
 
 
 @pytest.mark.parametrize("call", [
@@ -68,6 +90,9 @@ def test_cuda_call_without_cuda_raises(tmp_path):
     lambda x: packed_vgg.conv3x3_fused([x], [torch.zeros(2, 2, 3, 3)]),
     lambda x: lstm.lstm_last_hidden(x.reshape(1, 1, 8), torch.zeros(2, 8),
                                     torch.ones(1, dtype=torch.int32)),
+    lambda x: masked_stats.masked_class_sums(x, x, torch.zeros(1, 2, 2, dtype=torch.int32)),
+    lambda x: packed_vgg.conv3x3_pair_fused([x], [torch.zeros(2, 2, 3, 3)],
+                                            torch.zeros(2, 2, 3, 3)),
 ])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
     """The wrappers take the plain version only for CPU tensors."""
@@ -134,3 +159,41 @@ def test_kernel_branches_marshal_arguments(monkeypatch):
 
     assert [f.launches for f in (packed_vgg.conv3x3_fused, lstm.lstm_last_hidden,
                                  resize_pack.resize_pack)] == [n + 1 for n in launches]
+
+    # D: the scratch of partial sums is sized by the kernel's chunk, and the
+    # class map must be int32.
+    n_d = masked_stats.masked_class_sums.launches
+    pred = torch.zeros(3, 50, 50, 2)
+    sums = masked_stats.masked_class_sums(pred, pred, torch.zeros(3, 50, 50, dtype=torch.int32))
+    assert [tuple(t.shape) for t in sums] == [(3, 2, 9), (3, 2, 9), (3, 9)]
+    name, args = calls[-1]
+    assert name == "maunet_masked_class_sums" and args[7:12] == (3, 2500, 2, 2, 0)
+    assert masked_stats.masked_class_sums(pred.bfloat16(), pred.bfloat16(), torch.zeros(
+        3, 50, 50, dtype=torch.int32))[0].dtype == torch.float32 and calls[-1][1][11] == 1
+    with pytest.raises(ValueError, match="int32"):
+        masked_stats.masked_class_sums(pred, pred, torch.zeros(3, 50, 50, dtype=torch.int64))
+    with pytest.raises(ValueError, match="1-4 channels"):
+        masked_stats.masked_class_sums(torch.zeros(3, 50, 50, 5), torch.zeros(3, 50, 50, 5),
+                                       torch.zeros(3, 50, 50, dtype=torch.int32))
+    with pytest.raises(ValueError, match="share f32"):
+        masked_stats.masked_class_sums(pred, pred.bfloat16(),
+                                       torch.zeros(3, 50, 50, dtype=torch.int32))
+    assert masked_stats.masked_class_sums.launches == n_d + 2
+
+    # G: both convs' weights go over in the kernel's layout, widths capped at 64.
+    n_g = packed_vgg.conv3x3_pair_fused.launches
+    out = packed_vgg.conv3x3_pair_fused(
+        parts, weights, torch.zeros(20, 12, 3, 3), scale1=torch.ones(12),
+        bias1=torch.zeros(12), scale2=torch.ones(20), bias2=torch.zeros(20),
+        add=torch.zeros(2, 3, 7, 12))
+    assert out.shape == (2, 5, 7, 20) and out.dtype == bf
+    name, args = calls[-1]
+    assert name == "maunet_conv3x3_pair" and args[3] == 2 and args[9:14] == (2, 5, 7, 12, 20)
+    with pytest.raises(ValueError, match="up to 64"):
+        packed_vgg.conv3x3_pair_fused(parts, weights, torch.zeros(65, 12, 3, 3))
+    with pytest.raises(ValueError, match="does not follow"):
+        packed_vgg.conv3x3_pair_fused(parts, weights, torch.zeros(20, 13, 3, 3))
+    with pytest.raises(ValueError, match="needs a gradient"):
+        packed_vgg.conv3x3_pair_fused(parts, weights,
+                                      torch.zeros(20, 12, 3, 3, requires_grad=True))
+    assert packed_vgg.conv3x3_pair_fused.launches == n_g + 1

@@ -123,6 +123,10 @@ def test_unet_matches_jax_bf16(jax_case, hw):
     np.testing.assert_allclose(got, ref, atol=BF16_TOL)
 
 
-def test_unetpp_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UrbanPredictor("unet++")
+def test_unetpp_builds_through_the_facade():
+    """Both model families build (U-Net++ is compared with JAX in
+    tests/test_torch_port_unetpp.py); an unknown one is refused."""
+    model = UrbanPredictor("unet++", base_filters=4, deep_supervision=True)
+    assert model.model_type == "unet++" and hasattr(model.model, "final4")
+    with pytest.raises(ValueError, match="Unsupported model_type"):
+        UrbanPredictor("unet+")

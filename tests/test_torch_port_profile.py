@@ -75,3 +75,18 @@ def test_trace_breakdown_empty(profile_port):
 def test_train_family(profile_port, name, want):
     assert profile_port.family(name, profile_port.TRAIN_FAMILIES,
                                profile_port.TRAIN_OTHER) == want
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void (anonymous namespace)::masked_stats_partial_kernel<float, 2>(float const*)",
+     "D masked_class_sums"),
+    ("(anonymous namespace)::masked_stats_reduce_kernel(float const*, float*)",
+     "D masked_class_sums"),
+    ("(anonymous namespace)::conv3x3_fused_kernel((anonymous namespace)::ConvArgs)",
+     "A conv3x3_fused"),
+    ("void at::native::reduce_kernel<512, 1>()",
+     "other torch ops (epilogues, BN fold, cat, pool, means, Laplacian, argmax)"),
+])
+def test_eval_family(profile_port, name, want):
+    assert profile_port.family(name, profile_port.EVAL_FAMILIES,
+                               profile_port.EVAL_OTHER) == want

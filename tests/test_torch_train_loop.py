@@ -228,7 +228,7 @@ def test_trainer_checkpoint_loads_in_the_engine_and_in_jax(trained, roots):
     assert ckpt["hyperparameters"]["model_type"] == "unet" and ckpt["metadata_input_length"] == 8
     assert {"epoch", "step", "loss", "study_name", "trial_id", "optimizer_state_dict"} <= set(ckpt)
 
-    loaded = load_any_checkpoint(path)
+    loaded = load_any_checkpoint(path, device="cpu")
     for k, v in loaded.model.state_dict().items():
         torch.testing.assert_close(v, ckpt["model_state_dict"][k], rtol=0, atol=0)
     variables, hp, _ = jax_torch_import.load_torch_checkpoint(path)
