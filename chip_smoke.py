@@ -17,7 +17,10 @@ Phases, one output line each (or a few for the kernel table):
    forward, ``F.interpolate`` for the resize, ``einsum`` for dW), and its
    bound is reckoned: the larger of the bytes it must move over 3.35 TB/s
    and the operations it does over the card's peak for their type (989
-   TFLOP/s bf16, 67 TFLOP/s f32).  The pair kernel is also held against the
+   TFLOP/s bf16, 67 TFLOP/s f32).  The single-conv kernel is timed with its
+   weights prepared once, as a model's blocks keep them; the call with raw
+   weights, which prepares them on the fly, must give the same bits and is
+   timed beside it (``unprepared_ms``).  The pair kernel is also held against the
    two launches of the single-conv kernel that it replaces.  The shapes that
    an evaluation batch (B = 16) gives A, B and C are checked here as well:
    the U-Net's three convs and four upsamples, U-Net++'s eleven distinct
@@ -31,7 +34,9 @@ Phases, one output line each (or a few for the kernel table):
    reference-layout ``.pth`` and served through ``PlannerEngine`` on the
    card: three ``predict`` requests (256², 256² with a painted canvas, 250²)
    and one ``predict_many`` over 8 requests at 256².  The launch counters of
-   A, B and C must rise in this phase.  The same batch is then run with the
+   A, B and C must rise in this phase, and after the first batch no block
+   may fold, lay out or prepare a weight again (this is checked in the
+   evaluation and pair phases too).  The same batch is then run with the
    plain versions patched in, and the two outputs are compared;
 6. training path: ``TrainConfig``'s defaults (the JAX package's: U-Net base
    64, LSTM 96, bf16, batch 16, AdamW lr 1e-4 wd 1e-3, l1-gradient-ssim) on
@@ -76,7 +81,8 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
   conv3x3_fused, resize (bf16): |kernel - plain| <= 1e-2 + 1e-2 |plain|,
     one bf16 ulp of the shared f32 result, since the two sum in other orders;
   conv3x3_pair_fused (bf16): <= 2e-2 + 2e-2 |plain|, two bf16 roundings (mid
-    and output); against two chained conv3x3_fused launches the same bound;
+    and output); against two chained conv3x3_fused launches the same bound
+    (the two kernels sum in other orders);
   masked_class_sums (f32 sums of about 7,000 terms per class, taken in other
     orders on the two sides): <= 5e-5 + 5e-5 |plain| for f32 inputs, 1e-4 for
     bf16 and f16 ones; two launches give the same bits;
@@ -313,12 +319,22 @@ def check_kernels(table: KernelTable, dev) -> None:
         weights, scale, bias = conv_params(cins, cout)
         add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
         kw = dict(scale=scale, bias=bias, add=add, relu=True)
-        table.check("conv3x3_fused", f"{[(b, *hw, c) for c in cins]}->{cout}"
-                    f"{' +add' if with_add else ''}{note}",
-                    lambda: packed_vgg.conv3x3_fused(parts, weights, **kw),
+        prepared = packed_vgg.prepare_conv3x3(weights, scale, bias)
+        label = f"{[(b, *hw, c) for c in cins]}->{cout}{' +add' if with_add else ''}{note}"
+        table.check("conv3x3_fused", label,
+                    lambda: packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True),
                     lambda: packed_vgg.conv3x3_fused_plain(parts, weights, **kw),
                     1e-2, 1e-2, on_path, conv_work(b, hw, cins, cout, with_add),
                     cudnn_block(parts, [(weights, scale, bias)], add))
+        if not torch.equal(packed_vgg.conv3x3_fused(parts, weights, **kw),
+                           packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True)):
+            raise AssertionError(f"conv3x3_fused {label}: prepared and raw weights differ")
+        unprepared_ms = cuda_ms(lambda: packed_vgg.conv3x3_fused(parts, weights, **kw))
+        print(f"kernel conv3x3_fused {label}: unprepared_ms={unprepared_ms:.4f}, "
+              f"same bits as the prepared call")
+        if on_path:
+            row = table.rows["conv3x3_fused"]
+            row["unprepared_ms"] = row.get("unprepared_ms", 0.0) + unprepared_ms
 
     # G: every eligible block of the pair configuration at B=8, against its
     # plain version, against the two A launches it replaces, and beside
@@ -334,10 +350,12 @@ def check_kernels(table: KernelTable, dev) -> None:
         add = randn(b, 3, hw[1], cmid, std=0.5) if with_add else None
         kw = dict(scale1=scale1, bias1=bias1, scale2=scale2, bias2=bias2, add=add)
 
+        prepared1 = packed_vgg.prepare_conv3x3(w1, scale1, bias1)
+        prepared2 = packed_vgg.prepare_conv3x3([w2], scale2, bias2)
+
         def two_launches():
-            mid = packed_vgg.conv3x3_fused(parts, w1, scale=scale1, bias=bias1,
-                                           add=add, relu=True)
-            return packed_vgg.conv3x3_fused([mid], [w2], scale=scale2, bias=bias2, relu=True)
+            mid = packed_vgg.conv3x3_fused(parts, prepared1, add=add, relu=True)
+            return packed_vgg.conv3x3_fused([mid], prepared2, relu=True)
 
         n1, f1, _ = conv_work(b, hw, cins, cmid, with_add)
         n2, f2, _ = conv_work(b, hw, (cmid,), cout, False)
@@ -604,6 +622,21 @@ def write_checkpoint(tmpdir: str, model_type: str) -> str:
     return path
 
 
+def weights_prepared() -> tuple[int, int]:
+    """How often a block made its constants and a conv's weights were
+    prepared, so far."""
+    from maunet_tpu_torch.models.blocks import VGGBlock
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    return VGGBlock.constants_built, packed_vgg.prepare_conv3x3.calls
+
+
+def require_nothing_prepared(before: tuple[int, int], what: str) -> None:
+    if weights_prepared() != before:
+        raise AssertionError(f"{what}: a later forward prepared weights again "
+                             f"({before} -> {weights_prepared()})")
+
+
 def serving_path(dev, path: str) -> dict[str, int]:
     from maunet_tpu_torch.apps.engine import CANVAS_RGB, PlannerEngine
     from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
@@ -638,6 +671,7 @@ def serving_path(dev, path: str) -> dict[str, int]:
                                   float(rng.uniform(-180, 180)), *args)
              for _ in range(8)]
     many = engine.predict_many(batch)
+    prepared = weights_prepared()
     for i, (nd, ls) in enumerate(many):
         check_outputs(f"predict_many[{i}]", nd, ls, 256)
     launches = {fn.__name__: fn.launches for fn in served}
@@ -673,6 +707,7 @@ def serving_path(dev, path: str) -> dict[str, int]:
             host_ms.append((time.perf_counter() - t0) * 1e3)
     print(f"predict_many (8 x 256², bf16): {statistics.median(host_ms):.3f} ms per batch "
           f"(host clock, median of {len(host_ms)}, inputs and outputs copied)")
+    require_nothing_prepared(prepared, "serving path")
     return launches
 
 
@@ -895,12 +930,14 @@ def eval_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str]) -> dict[
         batch = to_device(host_tensors(next(make_batches(ds, EVAL_BATCH)),
                                        pin=dev.type == "cuda"), dev)
         got, _, _ = batch_metrics(loaded.model, batch, stats, 8)
+        prepared = weights_prepared()
         with mock.patch.object(packed_vgg, "conv3x3_fused", packed_vgg.conv3x3_fused_plain), \
                 mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
                 mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain), \
                 mock.patch.object(masked_stats, "masked_class_sums",
                                   masked_stats.masked_class_sums_plain):
             want, _, _ = batch_metrics(loaded.model, batch, stats, 8)
+        require_nothing_prepared(prepared, f"evaluation batch {model_type}")
         worst = {}
         for k, tol in [("mae", 1e-2), ("rmse", 1e-2), ("class_mae", 1e-2),
                        ("class_rmse", 1e-2), ("lap_var_pred", 5e-2), ("lap_var_gt", 5e-2)]:
@@ -953,6 +990,7 @@ def pair_path(dev, checkpoints: dict[str, str]) -> dict[str, int]:
         got = forward(True)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in fns.items()}
+        prepared = weights_prepared()
         diff = float((got - want).abs().max())
         scale = float(want.abs().max())
         if not bool(torch.isfinite(got).all()) or diff > 0.05 * max(scale, 1.0):
@@ -967,6 +1005,7 @@ def pair_path(dev, checkpoints: dict[str, str]) -> dict[str, int]:
         ms = {False: [], True: []}
         for fuse_pair in (False, True, True, False):
             ms[fuse_pair].append(cuda_ms(lambda: forward(fuse_pair)))
+        require_nothing_prepared(prepared, f"pair configuration {model_type}")
         print(f"pair configuration {model_type} (8 x 256², bf16): fuse_pair=True "
               f"{ms[True][0]:.3f} and {ms[True][1]:.3f} ms, fuse_pair=False "
               f"{ms[False][0]:.3f} and {ms[False][1]:.3f} ms per forward (CUDA events, "

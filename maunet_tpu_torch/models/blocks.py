@@ -17,7 +17,10 @@ Two structural points carry over from the JAX module:
    is computed in closed form (:func:`const_conv`).
 
 Which convs run the fused kernel is a function of the output width alone
-(:func:`uses_fused_kernel`).  Lane packing (``Packed``, ``BatchNormPacked``,
+(:func:`uses_fused_kernel`).  In eval mode with gradients off, a block keeps
+what each conv needs beyond its input (the BatchNorm affine, and the weights
+folded and laid out for the fused kernel or for cuDNN) from one forward to
+the next (``VGGBlock._constants``).  Lane packing (``Packed``, ``BatchNormPacked``,
 ``PackedConv1x1``, ``_ConvParams``) is a TPU layout device and is not
 ported; the whole-block pair kernel is, on plain NHWC (``VGGBlock.fuse_pair``).
 """
@@ -62,12 +65,21 @@ def const_conv(emb: torch.Tensor, kernel: torch.Tensor, h: int, w: int,
     rows {y=0, interior, y=h-1}, (B, 3, w, C), the fused kernel's ``add``."""
     e = emb.reshape(emb.shape[0], -1).float()
     taps = torch.einsum("bd,cdij->bijc", e, kernel.float())
-    bm = _border_mask(h)
-    a = np.stack([bm[0], np.ones(3, np.float32), bm[-1]]) if compact_h else bm
-    dev = emb.device
-    out = torch.einsum("hi,bijc->bhjc", torch.from_numpy(a).to(dev), taps)
-    return torch.einsum("wj,bhjc->bhwc",
-                        torch.from_numpy(_border_mask(w)).to(dev), out)
+    out = torch.einsum("hi,bijc->bhjc", _row_mask(h, compact_h, emb.device), taps)
+    return torch.einsum("wj,bhjc->bhwc", _row_mask(w, False, emb.device), out)
+
+
+@functools.lru_cache(maxsize=64)
+def _row_mask(n: int, compact: bool, device: torch.device) -> torch.Tensor:
+    """:func:`_border_mask` on ``device``; with ``compact`` only its rows
+    {0, interior, n-1}.  Kept per device: a blocking copy of a 3-column
+    constant at every call would stall the host at every decoder node.  Made
+    outside inference mode, so that a later training step can use it too."""
+    bm = _border_mask(n)
+    if compact:
+        bm = np.stack([bm[0], np.ones(3, np.float32), bm[-1]])
+    with torch.inference_mode(False):
+        return torch.from_numpy(bm).to(device)
 
 
 def bn_affine(conv: nn.Conv2d, bn: nn.BatchNorm2d | None
@@ -116,27 +128,62 @@ def embedding_add(bcast, hw: tuple[int, int]) -> torch.Tensor | None:
     return add
 
 
+def wide_conv_weight(weights: Sequence[torch.Tensor],
+                     compute_dtype: torch.dtype) -> torch.Tensor:
+    """The parts' weight slices as one channels-last ``compute_dtype`` weight
+    for a cuDNN conv over the concatenated parts."""
+    wt = torch.cat(list(weights), dim=1) if len(weights) > 1 else weights[0]
+    return wt.to(compute_dtype).contiguous(memory_format=torch.channels_last)
+
+
+def wide_conv_bn_relu(spatial: Sequence[torch.Tensor], wt: torch.Tensor,
+                      scale: torch.Tensor | None, bias: torch.Tensor, bcast,
+                      hw: tuple[int, int], compute_dtype: torch.dtype) -> torch.Tensor:
+    """A conv too wide for the fused kernel: cuDNN over the concatenated
+    parts, then the embeddings' closed form, the affine and ReLU in f32."""
+    x = torch.cat(list(spatial), dim=-1) if len(spatial) > 1 else spatial[0]
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1).float()
+    for e, w_e in bcast:
+        y = y + const_conv(e, w_e, *hw)
+    if scale is not None:
+        y = y * scale
+    return torch.relu(y + bias).to(compute_dtype).contiguous()
+
+
 def conv_bn_relu(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
                  bn: nn.BatchNorm2d | None, compute_dtype: torch.dtype) -> torch.Tensor:
     """relu(BN(conv3x3(concat(parts)))) without building the concat.
 
     Spatial parts are NHWC at the block's (H, W); (B, 1, 1, D) parts are
     broadcast embeddings.  Returns (B, H, W, out) NHWC-contiguous in
-    ``compute_dtype``."""
+    ``compute_dtype``.  Everything is derived from the parameters at this
+    call, so a gradient reaches them (on CPU tensors: the fused kernel has no
+    backward)."""
     hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype)
     scale, bias = bn_affine(conv, bn)
     if uses_fused_kernel(conv.out_channels):
         return pvgg.conv3x3_fused(spatial, weights, scale=scale, bias=bias,
                                   add=embedding_add(bcast, hw), relu=True)
-    x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
-    wt = torch.cat(weights, dim=1).to(compute_dtype).contiguous(
-        memory_format=torch.channels_last)
-    y = F.conv2d(x.permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1).float()
-    for e, wt in bcast:
-        y = y + const_conv(e, wt, *hw)
-    if scale is not None:
-        y = y * scale
-    return torch.relu(y + bias).to(compute_dtype).contiguous()
+    return wide_conv_bn_relu(spatial, wide_conv_weight(weights, compute_dtype),
+                             scale, bias, bcast, hw, compute_dtype)
+
+
+def _source_stamp(t: torch.Tensor | None):
+    """What tells that a parameter or buffer is still the tensor, with the
+    values, that a block's constants were made from: its storage, device and
+    version counter.  The counter moves with every in-place write PyTorch
+    knows of (``load_state_dict``, an optimizer step, ``mul_`` under
+    ``no_grad``), but not with one made through ``.data``, which has a counter
+    of its own.  A CPU tensor is cheap to read, so its bytes are hashed too and
+    such a write shows; a CUDA tensor's would cost a synchronisation per conv,
+    so there a write through ``.data`` needs ``VGGBlock.forget_constants``."""
+    if t is None:
+        return None
+    version = 0 if t.is_inference() else t._version
+    content = None
+    if t.device.type == "cpu":
+        content = hash(t.detach().contiguous().view(torch.uint8).numpy().tobytes())
+    return t.data_ptr(), t.device, version, content
 
 
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -191,7 +238,17 @@ class VGGBlock(nn.Module):
     mode a block whose two convs both take the fused kernel runs as one
     launch of the pair kernel instead of two (JAX blocks.py:462-471,554-581;
     off by default, as there).
+
+    In eval mode with gradients off, each conv's constants (the BatchNorm
+    affine; the :class:`~maunet_tpu_torch.ops.kernels.packed_vgg.PreparedConv`
+    of a conv that takes the fused kernel, the channels-last weight of a wider
+    one) are made at the first forward and kept.  They are made again when
+    what they came from changes: the split of the input into parts, the
+    compute dtype, or a source tensor (:func:`_source_stamp`).
+    ``VGGBlock.constants_built`` counts every making, over all blocks.
     """
+
+    constants_built = 0
 
     def __init__(self, in_channels: int, middle_channels: int,
                  out_channels: int, compute_dtype: torch.dtype = torch.bfloat16,
@@ -203,6 +260,45 @@ class VGGBlock(nn.Module):
         self.bn1 = None if bn_fused else nn.BatchNorm2d(middle_channels, eps=1e-5)
         self.conv2 = nn.Conv2d(middle_channels, out_channels, 3, padding=1)
         self.bn2 = None if bn_fused else nn.BatchNorm2d(out_channels, eps=1e-5)
+        self._kept: dict[str, tuple] = {}
+
+    def forget_constants(self) -> None:
+        """Drop the kept constants; the next eval forward makes them again."""
+        self._kept.clear()
+
+    def _constants(self, which: str, conv: nn.Conv2d, bn: nn.BatchNorm2d | None,
+                   split: tuple, weights: Sequence[torch.Tensor]):
+        """(scale, bias, weight) of conv ``which`` for this split of its input:
+        ``weight`` is a ``PreparedConv`` (which then also holds the scale and
+        bias) or the wide conv's channels-last weight."""
+        sources = (conv.weight, conv.bias) + (
+            () if bn is None else (bn.weight, bn.bias, bn.running_mean, bn.running_var))
+        key = (split, self.compute_dtype, None if bn is None else bn.eps,
+               tuple(_source_stamp(t) for t in sources))
+        kept = self._kept.get(which)
+        if kept is None or kept[0] != key:
+            VGGBlock.constants_built += 1
+            scale, bias = bn_affine(conv, bn)
+            if uses_fused_kernel(conv.out_channels):
+                made = (None, None, pvgg.prepare_conv3x3(weights, scale, bias,
+                                                         self.compute_dtype))
+            else:
+                made = (scale, bias, wide_conv_weight(weights, self.compute_dtype))
+            kept = self._kept[which] = (key, made)
+        return kept[1]
+
+    def _conv_kept(self, which: str, parts: Sequence[torch.Tensor], conv: nn.Conv2d,
+                   bn: nn.BatchNorm2d | None) -> torch.Tensor:
+        """:func:`conv_bn_relu` with the conv's constants kept between calls."""
+        cd = self.compute_dtype
+        hw, spatial, weights, bcast = split_parts(parts, conv, cd)
+        split = tuple((p.shape[-1], tuple(p.shape[1:3]) == (1, 1) and hw != (1, 1))
+                      for p in parts)
+        scale, bias, weight = self._constants(which, conv, bn, split, weights)
+        if uses_fused_kernel(conv.out_channels):
+            return pvgg.conv3x3_fused(spatial, weight, add=embedding_add(bcast, hw),
+                                      relu=True)
+        return wide_conv_bn_relu(spatial, weight, scale, bias, bcast, hw, cd)
 
     def takes_pair_kernel(self) -> bool:
         return (self.fuse_pair and not self.training
@@ -223,8 +319,11 @@ class VGGBlock(nn.Module):
             return pvgg.conv3x3_pair_fused(
                 spatial, weights, self.conv2.weight, scale1=scale1, bias1=bias1,
                 scale2=scale2, bias2=bias2, add=embedding_add(bcast, hw))
-        x = conv_bn_relu(list(parts), self.conv1, self.bn1, cd)
-        return conv_bn_relu([x], self.conv2, self.bn2, cd)
+        if torch.is_grad_enabled():
+            x = conv_bn_relu(list(parts), self.conv1, self.bn1, cd)
+            return conv_bn_relu([x], self.conv2, self.bn2, cd)
+        x = self._conv_kept("conv1", list(parts), self.conv1, self.bn1)
+        return self._conv_kept("conv2", [x], self.conv2, self.bn2)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,11 @@ device of the TPU's matrix unit and is not carried over.
 ``conv3x3_fused`` (``packed_conv3x3_fused``, kernel ``csrc/conv3x3_fused.cu``)
 computes ``relu?((sum_p conv3x3(x_p, w_p) + add) * scale + bias)`` with the
 scale folded into the weights and into ``add`` first, as
-``packed_vgg.py:480-487`` does, and rounds once to the parts' dtype.
+``packed_vgg.py:480-487`` does, and rounds once to the parts' dtype.  Its
+weights are prepared once by :func:`prepare_conv3x3`: folded, rounded and
+laid out as the kernel's main loop (``csrc/conv_tile.cuh``) copies them.  A
+caller that keeps the :class:`PreparedConv` (``models/blocks.VGGBlock`` in
+eval mode) pays for none of that at later calls.
 
 ``conv3x3_pair_fused`` (``packed_pair_fused``, kernel
 ``csrc/conv3x3_pair.cu``) computes a whole VGGBlock, two such convs with
@@ -20,6 +24,7 @@ Each kernel's header says what bounds it on the H100.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -55,17 +60,113 @@ def expand_add(add: torch.Tensor, h: int) -> torch.Tensor:
     return add.index_select(1, sel)
 
 
+# The layout of the prepared weights, as csrc/conv_tile.cuh reads them: K
+# steps of TILE_K input channels, output-channel tiles of TILE_N (a last or
+# only tile of at most TILE_N // 2 channels is half as wide).
+TILE_K = 32
+TILE_N = 64
+
+
+def output_tiles(cout: int) -> list[tuple[int, int]]:
+    """(first channel, width) of each output-channel tile of the kernel."""
+    return [(nbase, TILE_N // 2 if cout - nbase <= TILE_N // 2 else TILE_N)
+            for nbase in range(0, cout, TILE_N)]
+
+
+def k_steps(cins: Sequence[int]) -> int:
+    """K steps of one tile: each part's channels in slices of TILE_K."""
+    return sum(-(-c // TILE_K) for c in cins)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedConv:
+    """One conv's weights as the kernel reads them, with its epilogue.
+
+    ``packed``: flat, in the parts' dtype; for each output tile of
+    :func:`output_tiles`, each K step (part by part, slices of TILE_K
+    channels) and each tap, the ``width`` x TILE_K weights as the 8 x 8 core
+    matrices that ``wgmma`` reads from shared memory: the folded weight of
+    output channel ``nbase + 8 * j + r``, tap ``(tap // 3, tap % 3)`` and the
+    step's channel ``16 * ks + 8 * c + e`` is element ``tile_offset +
+    (((((step * 9 + tap) * 2 + ks) * (width // 8) + j) * 2 + c) * 8 + r) * 8
+    + e``, and zero past ``cout`` and past the part's channels.  ``scale``
+    (which ``add`` still needs) and ``bias``: (cout,) f32 or None.  ``cins``:
+    the parts' channels."""
+
+    packed: torch.Tensor
+    scale: torch.Tensor | None
+    bias: torch.Tensor | None
+    cins: tuple[int, ...]
+    cout: int
+
+    def unpack(self) -> list[torch.Tensor]:
+        """The folded (cout, cin_p, 3, 3) weight of each part, read back
+        from ``packed``."""
+        out = [self.packed.new_empty((self.cout, c, 3, 3)) for c in self.cins]
+        offset = 0
+        for nbase, width in output_tiles(self.cout):
+            rows = min(width, self.cout - nbase)
+            for wt, c in zip(out, self.cins):
+                n = -(-c // TILE_K)
+                size = n * 9 * width * TILE_K
+                slab = self.packed[offset:offset + size].reshape(n, 9, 2, width // 8, 2, 8, 8)
+                offset += size
+                # (step, tap, ks, j, c, r, e) -> (j, r, step, ks, c, e, tap)
+                full = slab.permute(3, 5, 0, 2, 4, 6, 1).reshape(width, n * TILE_K, 9)
+                wt[nbase:nbase + rows] = full[:rows, :c].reshape(rows, c, 3, 3)
+        return out
+
+
+def prepare_conv3x3(weights: Sequence[torch.Tensor],
+                    scale: torch.Tensor | None = None,
+                    bias: torch.Tensor | None = None,
+                    dtype: torch.dtype = torch.bfloat16) -> PreparedConv:
+    """Fold ``scale`` into the (cout, cin_p, 3, 3) weight slices, round them
+    to ``dtype`` (the parts') and lay them out for the kernel; keep ``scale``
+    and ``bias`` in f32.  A constant of the weights: no gradient passes."""
+    prepare_conv3x3.calls += 1
+    with torch.no_grad():
+        ws, _ = _fold(weights, scale, None, dtype)
+        cout = ws[0].shape[0]
+        slabs = []
+        for nbase, width in output_tiles(cout):
+            rows = min(width, cout - nbase)
+            for wt in ws:
+                c = wt.shape[1]
+                n = -(-c // TILE_K)
+                full = wt.new_zeros((width, n * TILE_K, 9))
+                full[:rows, :c] = wt[nbase:nbase + rows].reshape(rows, c, 9)
+                # (j, r, step, ks, c, e, tap) -> (step, tap, ks, j, c, r, e)
+                slab = full.reshape(width // 8, 8, n, 2, 2, 8, 9).permute(2, 6, 3, 0, 4, 1, 5)
+                slabs.append(slab.reshape(-1))
+        return PreparedConv(
+            packed=torch.cat(slabs),
+            scale=None if scale is None else scale.detach().float().contiguous(),
+            bias=None if bias is None else bias.detach().float().contiguous(),
+            cins=tuple(wt.shape[1] for wt in ws), cout=cout)
+
+
+prepare_conv3x3.calls = 0
+
+
 def conv3x3_fused_plain(parts: Sequence[torch.Tensor],
-                        weights: Sequence[torch.Tensor], *,
+                        weights: Sequence[torch.Tensor] | PreparedConv, *,
                         scale: torch.Tensor | None = None,
                         bias: torch.Tensor | None = None,
                         add: torch.Tensor | None = None,
                         relu: bool = False) -> torch.Tensor:
     """F.conv2d over the concatenated parts in f32 (operands rounded to the
     parts' dtype first, as the kernel reads them), then ``add``, ``bias``
-    and ReLU in f32, rounded once to the parts' dtype."""
+    and ReLU in f32, rounded once to the parts' dtype.  Prepared weights are
+    read back from their layout; they are folded and rounded already."""
     dtype = parts[0].dtype
-    ws, add = _fold(weights, scale, add, dtype)
+    if isinstance(weights, PreparedConv):
+        _require_epilogue_in(weights, scale, bias)
+        ws, _ = _fold(weights.unpack(), None, None, dtype)
+        _, add = _fold((), weights.scale, add, dtype)
+        bias = weights.bias
+    else:
+        ws, add = _fold(weights, scale, add, dtype)
     x = torch.cat([p.float() for p in parts], dim=-1).permute(0, 3, 1, 2)
     y = F.conv2d(x, torch.cat(ws, dim=1).float(), padding=1).permute(0, 2, 3, 1)
     if add is not None:
@@ -75,6 +176,11 @@ def conv3x3_fused_plain(parts: Sequence[torch.Tensor],
     if relu:
         y = torch.relu(y)
     return y.to(dtype).contiguous()
+
+
+def _require_epilogue_in(prepared: PreparedConv, scale, bias) -> None:
+    _build.require(scale is None and bias is None, "conv3x3_fused",
+                   "prepared weights carry their scale and bias")
 
 
 def _check_conv_inputs(what: str, parts: Sequence[torch.Tensor],
@@ -107,6 +213,41 @@ def _check_conv_inputs(what: str, parts: Sequence[torch.Tensor],
     return b, h, w, cout
 
 
+def _check_prepared_inputs(what: str, parts: Sequence[torch.Tensor],
+                           prepared: PreparedConv, add: torch.Tensor | None
+                           ) -> tuple[int, int, int, int]:
+    """What the single-conv kernel asks of its parts, its prepared weights
+    and ``add``; returns (B, H, W, cout).  On every launch's path, so a
+    message is put together only when its check fails."""
+    if not 1 <= len(parts) <= MAX_PARTS:
+        raise ValueError(f"{what}: takes 1-{MAX_PARTS} parts, got {len(parts)}")
+    shape = parts[0].shape[:3]
+    dev = parts[0].device
+    for p in parts:
+        if p.dim() != 4 or p.shape[:3] != shape:
+            raise ValueError(f"{what}: parts must share (B, H, W), got {tuple(p.shape)}")
+        if p.device != dev or p.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: parts must be bf16 on {dev}, got {p.dtype} "
+                             f"on {p.device}")
+        if not p.is_contiguous():
+            raise ValueError(f"{what}: parts must be contiguous")
+    cins = tuple(p.shape[3] for p in parts)
+    if cins != prepared.cins:
+        raise ValueError(f"{what}: the weights' layout for parts of {prepared.cins} "
+                         f"channels does not match parts of {cins}")
+    if prepared.packed.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: weights prepared in {prepared.packed.dtype}, not bf16")
+    for name, t in (("prepared weights", prepared.packed), ("scale", prepared.scale),
+                    ("bias", prepared.bias), ("add", add)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, not {dev}")
+    b, h, w = shape
+    if add is not None and add.shape != (b, 3, w, prepared.cout):
+        raise ValueError(f"{what}: add must be {(b, 3, w, prepared.cout)}, "
+                         f"got {tuple(add.shape)}")
+    return b, h, w, prepared.cout
+
+
 def _kernel_weights(ws: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """(cout, cin_p, 3, 3) -> the kernels' (9, cout, cin_p): the input
     channels of one tap and output channel are contiguous, as the kernels' K
@@ -125,7 +266,7 @@ def _pointer_arrays(parts: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]):
 
 
 def conv3x3_fused(parts: Sequence[torch.Tensor],
-                  weights: Sequence[torch.Tensor], *,
+                  weights: Sequence[torch.Tensor] | PreparedConv, *,
                   scale: torch.Tensor | None = None,
                   bias: torch.Tensor | None = None,
                   add: torch.Tensor | None = None,
@@ -136,7 +277,10 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
     (cout, cin_p, 3, 3) slice of the conv weight for that part; ``scale``,
     ``bias``: (cout,) epilogue vectors (``bias`` already holds the conv bias
     times the scale); ``add``: compact (B, 3, W, cout) pre-scale term of the
-    broadcast embeddings.  Returns (B, H, W, cout) in the parts' dtype.
+    broadcast embeddings.  ``weights`` may instead be the
+    :class:`PreparedConv` that :func:`prepare_conv3x3` made of the weights,
+    ``scale`` and ``bias``; raw weights are prepared on the fly, at every
+    call.  Returns (B, H, W, cout) in the parts' dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which takes bf16 parts of any H, W and cin.
@@ -147,25 +291,29 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
                                    add=add, relu=relu)
     # The kernel has no backward: train mode runs cuDNN convs
     # (models/blocks.conv_bn_relu_train).
-    _build.require_no_grad(what, *parts, *weights, scale, bias, add)
-    b, h, w, cout = _check_conv_inputs(what, parts, weights, add,
-                                       scale=scale, bias=bias)
-    dev = parts[0].device
-    ws, add = _fold(weights, scale, add, torch.bfloat16)
-    ws = _kernel_weights(ws)
-    add = None if add is None else add.contiguous()
-    bias = None if bias is None else bias.float().contiguous()
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
-    xs, wps, cins = _pointer_arrays(parts, ws)
+    if isinstance(weights, PreparedConv):
+        _require_epilogue_in(weights, scale, bias)
+        prepared = weights
+        _build.require_no_grad(what, *parts, add)
+    else:
+        _build.require_no_grad(what, *parts, *weights, scale, bias, add)
+        _build.require(len(weights) >= 1, what, "one weight slice per part")
+        prepared = prepare_conv3x3(weights, scale, bias, torch.bfloat16)
+    b, h, w, cout = _check_prepared_inputs(what, parts, prepared, add)
+    add = None if add is None else add.float().contiguous()
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=parts[0].device)
+    xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+    cins = (ctypes.c_int * len(parts))(*prepared.cins)
     fn = _build.function("maunet_conv3x3_fused",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int]
                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                         + [ctypes.c_void_p])
-    _build.check(fn(ctypes.addressof(xs), ctypes.addressof(wps),
+                         + [ctypes.c_void_p] * 2)
+    _build.check(fn(ctypes.addressof(xs), prepared.packed.data_ptr(),
                     ctypes.addressof(cins), len(parts),
                     None if add is None else add.data_ptr(),
-                    None if bias is None else bias.data_ptr(),
+                    None if prepared.bias is None else prepared.bias.data_ptr(),
                     out.data_ptr(), b, h, w, cout, int(relu),
+                    None if prepared.scale is None else prepared.scale.data_ptr(),
                     _build.stream_of(out)), what)
     conv3x3_fused.launches += 1
     return out

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port on one CUDA card: the U-Net's serving forward,
-with ``--train`` one train step, or with ``--eval`` one evaluation batch of
-each model family.
+with ``--train`` one train step, with ``--eval`` one evaluation batch of
+each model family, or with ``--conv`` the fused 3x3 conv kernel alone.
 
     python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
     python3 profile_port.py --eval [--trace PATH]    # default build/port_eval_trace.json
+    python3 profile_port.py --conv                   # no trace
 
 The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
 (seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
@@ -15,8 +16,9 @@ The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
   10 after 3 warm-up runs);
 * the host pieces of ``predict_many``: the concat of the 8 maps, their
   host-to-device copy, and ``predict_many`` itself (host clock, median of 5);
-* kernel A at the three level-0 shapes of that batch, beside the same conv
-  in cuDNN's bf16 (no epilogue) and A's plain version (f32);
+* kernel A at the three level-0 shapes of that batch, with its weights
+  prepared once as the model's blocks keep them, beside the same conv in
+  cuDNN's bf16 (no epilogue) and A's plain version (f32);
 * from a ``torch.profiler`` trace of 3 forwards: the device-busy time per
   forward, as the union of the kernel intervals, split by kernel family; and
   the device idle share, 1 - busy / wall.  The wall time is the unprofiled
@@ -37,6 +39,17 @@ calls) and, from a trace of 3 calls, the busy-time split by family and the
 idle share.  The trace of the U-Net++ run goes beside the U-Net's with a
 ``_unetpp`` suffix.
 
+The ``--conv`` mode compiles ``csrc/conv3x3_fused.cu`` alone with ``-Xptxas
+-v`` and prints each instantiation's registers and spills; holds the kernel
+against its plain version at nine shapes (odd sizes, two output-channel
+tiles, the 2-byte path, up to four parts with ``add``), with prepared and raw
+weights, which must give the same bits; and times it at the serving batch's
+three level-0 convs (B=8) and at every distinct conv of an evaluation batch
+(B=16) of both models: through the wrapper with prepared weights (CUDA
+events around single calls, median of 10), on the device (events around ten
+calls back to back), with raw weights, beside cuDNN's conv with the same
+epilogue and the bound (``chip_smoke.cudnn_block``, ``conv_work``).
+
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
 in the ``self_device_time_total`` of the aten operator that launched it, so
@@ -48,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -236,6 +250,105 @@ def eval_profile(trace: str, dev: torch.device) -> None:
                         f"evaluation batch ({model_type})", n, ms)
 
 
+# --conv: the shapes held against the plain version, as (batch, (H, W), the
+# parts' channels, cout, with add).
+CONV_CHECKS = (
+    (2, (256, 256), (23,), 64, False), (2, (256, 256), (64, 128), 64, False),
+    (2, (256, 256), (64,), 64, True), (2, (125, 125), (23, 40), 48, True),
+    (2, (33, 47), (16,), 80, True), (8, (256, 256), (32, 32, 32, 64), 32, True),
+    (1, (250, 250), (23,), 64, False), (1, (5, 3), (7,), 3, True),
+    (3, (16, 16), (8,), 33, False))
+
+
+def conv_profile(dev: torch.device) -> None:
+    """``--conv``: kernel A alone: registers, agreement, times."""
+    import math
+
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import _build, packed_vgg
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ptxas = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(_build.CSRC / "conv3x3_fused.cu"), "-o", os.path.join(tmpdir, "conv.o")],
+            capture_output=True, text=True, check=True).stderr
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            nt, stages = re.search(r"conv3x3_fused_kernelILi(\d+)ELi(\d+)E", line).groups()
+            print(f"ptxas, BN = {8 * int(nt)} with {stages} stages:", end=" ")
+        elif "registers" in line or "spill" in line:
+            print(line.replace("ptxas info    :", "").strip(), end="; " if "spill" in line else "\n")
+
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def case(b, hw, cins, cout, with_add):
+        parts = [randn(b, *hw, c).to(torch.bfloat16) for c in cins]
+        weights = [randn(cout, c, 3, 3, std=math.sqrt(2 / (9 * sum(cins)))) for c in cins]
+        scale, bias = 0.5 + torch.rand(cout, generator=g, device=dev), randn(cout, std=0.1)
+        add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
+        return parts, weights, scale, bias, add
+
+    def device_ms(fn, calls: int = 10) -> float:
+        """Device time per launch: events around ``calls`` calls back to back."""
+        return cs.cuda_ms(lambda: [fn() for _ in range(calls)], reps=5) / calls
+
+    for key in CONV_CHECKS:
+        parts, weights, scale, bias, add = case(*key)
+        kw = dict(scale=scale, bias=bias, add=add, relu=True)
+        raw = packed_vgg.conv3x3_fused(parts, weights, **kw)
+        prepared = packed_vgg.prepare_conv3x3(weights, scale, bias)
+        got = packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True)
+        want = packed_vgg.conv3x3_fused_plain(parts, weights, **kw).float()
+        diff = (got.float() - want).abs()
+        ok = (bool(torch.isfinite(got).all()) and torch.equal(got, raw)
+              and bool((diff <= 1e-2 + 1e-2 * want.abs()).all()))
+        print(f"check {key}: max_abs_err={float(diff.max()):.3e} (tol 1e-2 + 1e-2|plain|), "
+              f"prepared and raw weights {'agree' if torch.equal(got, raw) else 'DIFFER'}: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"conv3x3_fused {key} disagrees")
+
+    level0 = [(23,), (64,), (64, 128)]
+    timed = ([("serving B=8", (8, (256, 256), c, 64, False)) for c in level0]
+             + [("evaluation U-Net", (cs.EVAL_BATCH, (256, 256), c, 64, False)) for c in level0]
+             + [("evaluation U-Net++", (cs.EVAL_BATCH, *conv)) for conv in cs.UNETPP_CONVS])
+    sums: dict[str, list[float]] = {}
+    for group, key in timed:
+        parts, weights, scale, bias, add = case(*key)
+        prepared = packed_vgg.prepare_conv3x3(weights, scale, bias)
+
+        def call():
+            return packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True)
+
+        ms, dev_ms = cs.cuda_ms(call), device_ms(call)
+        raw_ms = cs.cuda_ms(lambda: packed_vgg.conv3x3_fused(
+            parts, weights, scale=scale, bias=bias, add=add, relu=True))
+        cudnn_ms = cs.cuda_ms(cs.cudnn_block(parts, [(weights, scale, bias)], add))
+        nbytes, flops, _ = cs.conv_work(*key)
+        bound = max(nbytes / cs.HBM_BYTES_PER_S, flops / cs.PEAK_FLOPS["bf16"]) * 1e3
+        print(f"time {group} {key}: prepared {ms:.4f} ms, on the device {dev_ms:.4f}, raw "
+              f"weights {raw_ms:.4f}, cuDNN {cudnn_ms:.4f}, bound {bound:.4f} "
+              f"({flops / dev_ms / 1e9:.0f} TFLOP/s, {nbytes / dev_ms / 1e6:.0f} GB/s on the device)")
+        for i, v in enumerate((ms, dev_ms, raw_ms, cudnn_ms, bound)):
+            sums.setdefault(group, [0.0] * 5)[i] += v
+    for group, (ms, dev_ms, raw_ms, cudnn_ms, bound) in sums.items():
+        print(f"sum {group} (each distinct conv once): prepared {ms:.4f} ms, on the device "
+              f"{dev_ms:.4f}, raw weights {raw_ms:.4f}, cuDNN {cudnn_ms:.4f}, bound {bound:.4f}")
+
+    parts, weights, scale, bias, add = case(1, (5, 3), (7,), 3, True)
+    prepared = packed_vgg.prepare_conv3x3(weights, scale, bias)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True)
+    print(f"wrapper host time per prepared call: {(time.perf_counter() - t0) / 200 * 1e6:.1f} us")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
@@ -243,6 +356,8 @@ def main() -> int:
                       help="profile one train step instead of the serving forward")
     mode.add_argument("--eval", action="store_true",
                       help="profile one evaluation batch of each model family")
+    mode.add_argument("--conv", action="store_true",
+                      help="check and time the fused 3x3 conv kernel alone")
     parser.add_argument("--trace", default=None,
                         help="where the Chrome trace is written (default: "
                              "build/port_forward_trace.json, port_train_trace.json "
@@ -259,7 +374,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.train:
+    if args.conv:
+        conv_profile(torch.device("cuda", 0))
+    elif args.train:
         train_profile(trace, torch.device("cuda", 0))
     elif args.eval:
         eval_profile(trace, torch.device("cuda", 0))
@@ -307,7 +424,8 @@ def serve_profile(trace: str) -> None:
                  for c in cins]
         weights = [torch.randn((64, c, 3, 3), generator=g, device=dev) * 0.05 for c in cins]
         kw = dict(scale=torch.ones(64, device=dev), bias=torch.zeros(64, device=dev), relu=True)
-        a_ms = cs.cuda_ms(lambda: packed_vgg.conv3x3_fused(parts, weights, **kw))
+        prepared = packed_vgg.prepare_conv3x3(weights, kw["scale"], kw["bias"])
+        a_ms = cs.cuda_ms(lambda: packed_vgg.conv3x3_fused(parts, prepared, relu=True))
         plain_ms = cs.cuda_ms(lambda: packed_vgg.conv3x3_fused_plain(parts, weights, **kw))
         x = torch.cat(parts, -1).permute(0, 3, 1, 2)
         w = torch.cat(weights, 1).to(torch.bfloat16).contiguous(

@@ -123,6 +123,27 @@ def test_unet_matches_jax_bf16(jax_case, hw):
     np.testing.assert_allclose(got, ref, atol=BF16_TOL)
 
 
+def test_unet_250_chain_matches_jax_f32():
+    """The reference data's tile size: 250 -> 125 -> 62 -> 31 -> 15 going
+    down (the floor max-pool drops a row and a column twice) and 15 -> 30 ->
+    31, 31 -> 62, 62 -> 124 -> 125, 125 -> 250 going up (a fix-up resize after
+    the 2x upsample wherever the skip is odd)."""
+    hw, t = 250, 16
+    kw = dict(base_filters=4, temporal_dim=4, meta_dim=4, lstm_dim=4)
+    rng = np.random.default_rng(250)
+    inputs = (rng.normal(size=(1, hw, hw, 23)).astype(np.float32),
+              rng.normal(size=(1, t)).astype(np.float32),
+              rng.normal(size=(1, 8)).astype(np.float32),
+              np.array([11], np.int32))
+    jax_model = JaxUrbanPredictor("unet", compute_dtype=jnp.float32, **kw)
+    variables = random_jax_variables(rng, jax_model, inputs)
+    ref = np.asarray(jax.jit(jax_model.apply)(variables, *(jnp.asarray(a) for a in inputs)))
+    model = _port(variables, inputs[0], inputs[2], compute_dtype=torch.float32, **kw)
+    got = _run_port(model, *inputs)
+    assert got.shape == ref.shape == (1, hw, hw, 2)
+    np.testing.assert_allclose(got, ref, atol=F32_TOL)
+
+
 def test_unetpp_builds_through_the_facade():
     """Both model families build (U-Net++ is compared with JAX in
     tests/test_torch_port_unetpp.py); an unknown one is refused."""
