@@ -20,12 +20,16 @@ Phases, one output line each (or a few for the kernel table):
    TFLOP/s bf16, 67 TFLOP/s f32).  The single-conv kernel is timed with its
    weights prepared once, as a model's blocks keep them; the call with raw
    weights, which prepares them on the fly, must give the same bits and is
-   timed beside it (``unprepared_ms``).  The pair kernel is also held against the
-   two launches of the single-conv kernel that it replaces.  The shapes that
+   timed beside it (``unprepared_ms``); so is the pair kernel, whose two
+   convs' weights are prepared the same way.  The pair kernel is also held
+   against the two launches of the single-conv kernel that it replaces.  The shapes that
    an evaluation batch (B = 16) gives A, B and C are checked here as well:
    the U-Net's three convs and four upsamples, U-Net++'s eleven distinct
    base-32 convs (up to five parts plus the embedding term) and its four
-   upsamples, and the LSTM at 16 lengths between T/2 and T;
+   upsamples, and the LSTM at 16 lengths between T/2 and T.  B and E are
+   also held against their plain versions at the edges of what the forward
+   kernel takes (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
+   B = 1, H = 50, 64 and 96, T = 64 and 828);
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
    and ``golden_unetpp.npz`` run on the card in bf16 and are held against the
    JAX package's recorded f32 outputs;
@@ -57,8 +61,10 @@ Phases, one output line each (or a few for the kernel table):
    temporal 64, meta 64).  The CSV must exist under its exact name and hold
    40 distinct samples, two finite ``overall`` rows each, and class rows for
    exactly the classes each sample has.  The counters of A, B, C and D must
-   rise.  One batch's metrics are then computed with the plain versions
-   patched in and compared, and the loop's tiles per second are printed;
+   rise.  The same call then reads a packed copy of the test split
+   (``data/shards.py``) and must give the same rows; both loops' tiles per
+   second are printed.  One batch's metrics are then computed with the plain
+   versions patched in and compared;
 8. pair configuration: the same two models built with ``fuse_pair=True`` run
    one forward at B = 8, 256².  G's counter must rise by the number of
    eligible blocks (2 in the U-Net: ``conv0_0``, ``conv0_1``; 9 in U-Net++:
@@ -278,6 +284,21 @@ EVAL_BATCH = 16
 # LSTM lengths of phase 3's evaluation-batch check of B: the synthetic split
 # draws each sample's from T/2..T.
 EVAL_LENGTHS = [828, 414, 700, 512, 621, 799, 450, 828, 733, 580, 666, 415, 777, 502, 640, 811]
+# The LSTM lengths of phase 3's predict_many batch (B=8) for B.
+SERVING_LENGTHS = [828, 828, 600, 414, 100, 1, 0, 827]
+# (hidden, T, lengths) of phase 3's edge-case checks of B and E.
+LSTM_EDGE_CASES = [
+    (96, T_SERIES, [0, 1, T_SERIES]), (96, 64, [64]), (64, 64, [64, 0, 1, 33]),
+    (50, 64, [64, 1, 0, 17, 63]), (50, T_SERIES, [T_SERIES, 0, 1, 400]),
+    (64, T_SERIES, [T_SERIES])]
+
+
+def lstm_inputs(g: torch.Generator, dev, hidden: int, t: int, lens):
+    """Seeded (x_proj (B, t, 4H), W_hh (H, 4H), lengths (B,) int32) on
+    ``dev``, W_hh drawn as torch's LSTM initialises it."""
+    x_proj = torch.randn((len(lens), t, 4 * hidden), generator=g, device=dev) * 0.5
+    w_hh = (torch.rand((hidden, 4 * hidden), generator=g, device=dev) * 2 - 1) / math.sqrt(hidden)
+    return x_proj, w_hh, torch.tensor(lens, dtype=torch.int32, device=dev)
 
 
 def check_kernels(table: KernelTable, dev) -> None:
@@ -357,24 +378,35 @@ def check_kernels(table: KernelTable, dev) -> None:
             mid = packed_vgg.conv3x3_fused(parts, prepared1, add=add, relu=True)
             return packed_vgg.conv3x3_fused([mid], prepared2, relu=True)
 
+        def pair():
+            return packed_vgg.conv3x3_pair_fused(parts, prepared1, prepared2, add=add)
+
         n1, f1, _ = conv_work(b, hw, cins, cmid, with_add)
         n2, f2, _ = conv_work(b, hw, (cmid,), cout, False)
         mid_bytes = 2 * b * hw[0] * hw[1] * cmid * 2     # never written, never read
         label = (f"{[(b, *hw, c) for c in cins]}->{cmid}->{cout}"
                  f"{' +add' if with_add else ''}")
-        ms = table.check("conv3x3_pair_fused", label,
-                         lambda: packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw),
+        ms = table.check("conv3x3_pair_fused", label, pair,
                          lambda: packed_vgg.conv3x3_pair_fused_plain(parts, w1, w2, **kw),
                          2e-2, 2e-2, on_path, (n1 + n2 - mid_bytes, f1 + f2, "bf16"),
                          cudnn_block(parts, [(w1, scale1, bias1), ([w2], scale2, bias2)], add))
-        got, chained = packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw), two_launches()
+        got, chained = pair(), two_launches()
+        if not torch.equal(packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw), got):
+            raise AssertionError(f"conv3x3_pair_fused {label}: prepared and raw weights differ")
+        unprepared_ms = cuda_ms(lambda: packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw))
+        two_ms = cuda_ms(two_launches)
         diff = (got.float() - chained.float()).abs()
         ok = bool((diff <= 2e-2 + 2e-2 * chained.float().abs()).all())
         print(f"kernel conv3x3_pair_fused {label} vs two conv3x3_fused launches: "
               f"max_abs_diff={float(diff.max()):.3e} ms={ms:.4f} "
-              f"two_launches_ms={cuda_ms(two_launches):.4f} {'ok' if ok else 'FAIL'}")
+              f"two_launches_ms={two_ms:.4f} unprepared_ms={unprepared_ms:.4f} "
+              f"(raw weights, same bits) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"conv3x3_pair_fused {label} disagrees with two launches")
+        if on_path:
+            row = table.rows["conv3x3_pair_fused"]
+            row["unprepared_ms"] = row.get("unprepared_ms", 0.0) + unprepared_ms
+            row["two_launches_ms"] = row.get("two_launches_ms", 0.0) + two_ms
 
     # D: the evaluation batch; one 250² tile; bf16 inputs; a map with absent
     # classes; one with class values outside 0..8, which count nowhere; then
@@ -425,15 +457,12 @@ def check_kernels(table: KernelTable, dev) -> None:
     hidden = 96
     gates = 4 * hidden
 
-    def lstm_case(lens):
-        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        x_proj = randn(len(lens), T_SERIES, gates, std=0.5)
-        w_hh = (torch.rand((hidden, gates), generator=g, device=dev) * 2 - 1) / math.sqrt(hidden)
-        return lens, x_proj, w_hh, f"({len(lens)}, {T_SERIES}, {gates}) lengths={lens.tolist()}"
+    def lstm_case(lens, hidden=hidden, t=T_SERIES):
+        x_proj, w_hh, lengths = lstm_inputs(g, dev, hidden, t, lens)
+        return lengths, x_proj, w_hh, f"({len(lens)}, {t}, {4 * hidden}) lengths={lens}"
 
     cudnn_lstm = torch.nn.LSTM(1, hidden, batch_first=True).to(dev)
-    for lens, on_path in [([828, 828, 600, 414, 100, 1, 0, 827], True), ([828], False),
-                          (EVAL_LENGTHS, False)]:
+    for lens, on_path in [(SERVING_LENGTHS, True), ([828], False), (EVAL_LENGTHS, False)]:
         steps = sum(lens)
         lens, x_proj, w_hh, label = lstm_case(lens)
         series = randn(len(lens), T_SERIES, 1)
@@ -445,6 +474,25 @@ def check_kernels(table: KernelTable, dev) -> None:
                         (steps * gates * 4 + hidden * gates * 4 + len(lens) * hidden * 4,
                          steps * (2 * hidden * gates + 10 * gates), "f32"),
                         lambda: cudnn_lstm(series)[1][0])
+
+    # B and E at the edges of what the forward kernel takes: lengths 0, 1
+    # and T in one batch, B = 1, hidden sizes that do not fill the unit's
+    # k slices (50), fill them (64) or are the model's (96), T = 64 and 828.
+    for edge_hidden, t, lens in LSTM_EDGE_CASES:
+        steps, g4 = sum(lens), 4 * edge_hidden
+        lens, x_proj, w_hh, label = lstm_case(lens, edge_hidden, t)
+        flops = steps * (2 * edge_hidden * g4 + 10 * g4)
+        with torch.no_grad():
+            table.check("lstm_last_hidden", label,
+                        lambda: lstm.lstm_last_hidden(x_proj, w_hh, lens),
+                        lambda: lstm.lstm_last_hidden_scan(x_proj, w_hh, lens), 1e-4, 0.0,
+                        False, (steps * g4 * 4 + edge_hidden * g4 * 4 + len(lens) * edge_hidden * 4,
+                                flops, "f32"))
+        table.check("lstm_forward_stash", label,
+                    lambda: lstm.lstm_forward_stash(x_proj, w_hh, lens),
+                    lambda: lstm.lstm_forward_stash_plain(x_proj, w_hh, lens), 1e-4, 0.0,
+                    False, (steps * g4 * 4 + edge_hidden * g4 * 4
+                            + 2 * len(lens) * t * edge_hidden * 4, flops, "f32"))
 
     # E, F and dW: the training batch (B=16, the trainer's default) with
     # mixed lengths, and B=1.  F and dW read the plain version's stash, so
@@ -868,6 +916,7 @@ def eval_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str]) -> dict[
     from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
     from maunet_tpu_torch.data.pipeline import host_tensors, to_device
     from maunet_tpu_torch.data.schema import NormalizationStats
+    from maunet_tpu_torch.data.shards import pack_dataset
     from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
     from maunet_tpu_torch.evaluate.evaluator import batch_metrics, evaluate_checkpoint
     from maunet_tpu_torch.evaluate.metrics import dw_map_from_input
@@ -880,16 +929,30 @@ def eval_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str]) -> dict[
     present = [{DW_CLASSES[int(k)] for k in dw_map_from_input(
         torch.from_numpy(ds[i]["maps"][None])).unique()} for i in range(n_test)]
     out_dir = os.path.join(tmpdir, "reports")
+    # A packed copy of the test split (the train split, which gives the known
+    # cities, and the statistics are linked), read through the same call.
+    t0 = time.perf_counter()
+    packed = os.path.join(tmpdir, "packed")
+    pack_dataset(os.path.join(data, "test"), os.path.join(packed, "test"),
+                 temporal_length=T_SERIES)
+    os.symlink(os.path.join(data, "train"), os.path.join(packed, "train"))
+    os.symlink(os.path.join(data, "normalization_metrics.json"),
+               os.path.join(packed, "normalization_metrics.json"))
+    print(f"packed the test split ({n_test} samples) in {time.perf_counter() - t0:.1f} s")
+
+    def evaluate(path, root, jobid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = evaluate_checkpoint(path, TrainConfig(), data_dir=root, study_name="smoke",
+                                   jobid=jobid, n_visualize=0, output_dir=out_dir,
+                                   batch_size=EVAL_BATCH, device=dev)
+        torch.cuda.synchronize()
+        return rows, time.perf_counter() - t0
+
     total: dict[str, int] = {}
     for model_type, path in checkpoints.items():
         fns = reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rows = evaluate_checkpoint(path, TrainConfig(), data_dir=data, study_name="smoke",
-                                   jobid="1", n_visualize=0, output_dir=out_dir,
-                                   batch_size=EVAL_BATCH, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        rows, wall = evaluate(path, data, "1")
         launches = {name: fn.launches for name, fn in fns.items()}
         report = os.path.join(out_dir, f"smoke_{model_type}_emb_0_job1_evaluation.csv")
         if not (os.path.exists(report)
@@ -917,6 +980,17 @@ def eval_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str]) -> dict[
               f"{wall:.2f} s, {n_test / wall:.1f} tiles/s on {torch.cuda.get_device_name(0)} "
               f"(host clock; checkpoint load, data decode and the CSV included), "
               f"launches={launches}")
+        packed_rows, packed_wall = evaluate(path, packed, "1packed")
+        same = [(r["sample_idx"], r["channel"], r["dw_class"]) for r in packed_rows] == [
+            (r["sample_idx"], r["channel"], r["dw_class"]) for r in rows]
+        worst = max(abs(a["mae"] - b["mae"]) / max(abs(b["mae"]), 1e-12)
+                    for a, b in zip(packed_rows, rows))
+        print(f"evaluation path {model_type} from the packed split: {n_test / packed_wall:.1f} "
+              f"tiles/s against {n_test / wall:.1f} from per-sample files (host clock, as "
+              f"above); rows {'equal' if same else 'DIFFER'}, MAE max relative difference "
+              f"{worst:.2e} (tol 1e-3)")
+        if not (same and worst <= 1e-3):
+            raise AssertionError(f"evaluation path {model_type}: the packed split's rows differ")
         missing = [name for name in ("conv3x3_fused", "lstm_last_hidden", "resize_pack",
                                      "masked_class_sums") if launches[name] == 0]
         if missing:

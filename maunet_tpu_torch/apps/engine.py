@@ -90,7 +90,9 @@ class PlannerEngine:
 
     def __init__(self, checkpoint_path: str, *, device: str | torch.device,
                  stats: NormalizationStats | None = None, temp_query=None,
-                 temporal_length: int = 828):
+                 temporal_length: int = 828, img_size: int = 512):
+        """``img_size``: the side of the layers the planner fetches and shows
+        (the JAX engine's, kept for the app; the model takes any size)."""
         from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
 
         self.device = torch.device(device)
@@ -99,6 +101,7 @@ class PlannerEngine:
         self.stats = stats or DEFAULT_SERVING_STATS
         self.temp_query = temp_query
         self.temporal_length = temporal_length
+        self.img_size = img_size
         self.metadata_features = int(self.loaded.hyperparams.get(
             "metadata_input_length",
             self.loaded.meta.get("metadata_input_length", 8)))

@@ -67,113 +67,6 @@
 
 namespace {
 
-struct ConvArgs {
-  TileIn in;
-  const uint16_t* wpk;            // this output-channel tile's slabs
-  const float* add;               // (B, 3, W, cout) or null
-  const float* scale;             // (cout,), multiplies add; or null
-  const float* bias;              // (cout,) or null
-  __nv_bfloat16* out;             // (B, H, W, cout)
-  int H, W, cout;
-  int nbase;                      // first output channel of this tile
-  int relu;
-  int vec_out;                    // 16-byte stores: cout % 8 == 0, aligned
-  int tiles_x, tiles_per_image, ntiles;
-};
-
-struct TilePos {
-  int n, ty0, tx0;
-};
-
-__device__ __forceinline__ TilePos tile_pos(const ConvArgs& a, int tile) {
-  TilePos t;
-  t.n = tile / a.tiles_per_image;
-  const int r = tile % a.tiles_per_image;
-  t.ty0 = r / a.tiles_x * TH;
-  t.tx0 = r % a.tiles_x * TW;
-  return t;
-}
-
-// add * scale + bias, ReLU and the rounding to bf16, eight tile pixels of one
-// tile row at a time.  scale_s and bias_s: this output tile's BN values in
-// shared memory (1 and 0 past cout): read from device memory inside this
-// loop, between the stores, they cost a trip to L2 each.  Where the output
-// rows take 16-byte stores (cout % 8 == 0), the warp passes the 8 x BN values through its own `stage` rows in
-// shared memory (16-byte chunks swizzled by row, so neither side has bank
-// conflicts) and writes whole 16-byte chunks, pixel after pixel: a store
-// instruction then fills complete 128-byte lines where the fragment layout
-// would touch eight lines with 16 bytes each.
-template <int NT>
-__device__ __forceinline__ void epilogue(const ConvArgs& a, const TilePos& t, int warp,
-                                         int lane, const float (&acc)[2][NT][4],
-                                         uint16_t* stage, const float* scale_s,
-                                         const float* bias_s) {
-  constexpr int BN = NT * 8;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int H = a.H, W = a.W, cout = a.cout;
-  const float* add = a.add;
-  auto swizzle = [](int row) { return NT == 8 ? (row & 7) : ((row >> 1) & 3); };
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int yy = t.ty0 + tile_row(warp, mt);
-    if (yy >= H) continue;
-    const int sel = yy == 0 ? 0 : (yy == H - 1 ? 2 : 1);
-    __nv_bfloat16* out_row = a.out + (static_cast<long long>(t.n) * H + yy) * W * cout;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int x0 = t.tx0 + half * 8;
-      const bool inside = x0 + g < W;
-      const float* add_row =
-          add && inside ? add + ((static_cast<long long>(t.n) * 3 + sel) * W + x0 + g) * cout
-                        : nullptr;
-      __nv_bfloat162 packed[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = nt * 8 + t4 * 2;
-        float val[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float s = acc[mt][nt][half * 2 + e];
-          if (add_row && a.nbase + c + e < cout)
-            s += __ldg(add_row + a.nbase + c + e) * scale_s[c + e];
-          s += bias_s[c + e];
-          val[e] = a.relu ? fmaxf(s, 0.f) : s;
-        }
-        packed[nt] = __floats2bfloat162_rn(val[0], val[1]);
-      }
-      if (a.vec_out) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          *reinterpret_cast<__nv_bfloat162*>(stage + g * BN + (nt ^ swizzle(g)) * 8 + t4 * 2) =
-              packed[nt];
-        __syncwarp();
-#pragma unroll
-        for (int j = 0; j < 8 * NT / 32; ++j) {
-          const int row = (j * 32 + lane) / NT, chunk = (j * 32 + lane) % NT;
-          const uint4 v =
-              *reinterpret_cast<const uint4*>(stage + row * BN + (chunk ^ swizzle(row)) * 8);
-          const int co = a.nbase + chunk * 8;
-          if (x0 + row < W && co < cout)
-            *reinterpret_cast<uint4*>(out_row + static_cast<long long>(x0 + row) * cout + co) = v;
-        }
-        __syncwarp();
-      } else if (inside) {
-        __nv_bfloat16* orow = out_row + static_cast<long long>(x0 + g) * cout;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int co = a.nbase + nt * 8 + t4 * 2;
-          if (co + 1 < cout && (cout & 1) == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + co) = packed[nt];
-          } else {
-            if (co < cout) orow[co] = packed[nt].x;
-            if (co + 1 < cout) orow[co + 1] = packed[nt].y;
-          }
-        }
-      }
-    }
-  }
-}
-
 template <int NT, int NSTAGES>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_fused_kernel(const __grid_constant__ ConvArgs a) {

@@ -1,5 +1,6 @@
 // The halo-tile main loop of the 3x3 SAME convolution over a virtual channel
-// concat of 1-5 NHWC bf16 parts (conv3x3_fused.cu).
+// concat of 1-5 NHWC bf16 parts (conv3x3_fused.cu), its epilogue, and the
+// halo copies in any size, which the pair kernel (conv3x3_pair.cu) also uses.
 //
 // A block of 256 threads (two warpgroups) owns a 16 x 16 rectangle of output
 // pixels of one sample and accumulates it against BN = 64 or 32 output
@@ -41,13 +42,22 @@ constexpr int BK = 32;                       // input channels per stage
 constexpr int LDS = BK + 8;                  // shared row stride in bf16 (80 bytes)
 constexpr int kWarps = TH / 2;
 constexpr int kThreads = kWarps * 32;        // 256
-constexpr int kHaloElems = HPIX * LDS;
-// The 2-byte path moves channel pairs: this many per thread and stage.
-constexpr int kPairs = HPIX * (BK / 2);
-constexpr int kPairIters = (kPairs + kThreads - 1) / kThreads;
 
 static_assert(TW == 16 && TH == 16 && BK == 32,
               "a warp's 16 product rows are one tile row; two k16 steps per stage");
+
+// A halo of HWD x HHD pixels, staged at the LDS row stride; the 2-byte path
+// moves its channel pairs, kPairIters per thread and stage.
+template <int HWD, int HHD>
+struct HaloShape {
+  static constexpr int kPix = HWD * HHD;
+  static constexpr int kElems = kPix * LDS;
+  static constexpr int kPairs = kPix * (BK / 2);
+  static constexpr int kPairIters = (kPairs + kThreads - 1) / kThreads;
+};
+// A's own: one pixel around its tile.
+constexpr int kHaloElems = HaloShape<HW, HH>::kElems;
+constexpr int kPairIters = HaloShape<HW, HH>::kPairIters;
 
 __host__ __device__ constexpr int weight_slab_elems(int bn) { return 9 * bn * BK; }
 __host__ __device__ constexpr int stage_elems(int bn) { return kHaloElems + weight_slab_elems(bn); }
@@ -102,11 +112,13 @@ __device__ __forceinline__ int tile_row(int warp, int mt) {
   return (warp >> 2) * 8 + mt * 4 + (warp & 3);
 }
 
-// Which image pixel halo pixel `hp` of the tile at (ty0, tx0) is.
+// Which image pixel halo pixel `hp` of the tile at (ty0, tx0) is, for a halo
+// HWD pixels wide that starts one pixel above and left of the tile.
+template <int HWD = HW>
 __device__ __forceinline__ bool halo_pixel(int hp, int ty0, int tx0, int H, int W,
                                            int& y, int& x) {
-  y = ty0 - 1 + hp / HW;
-  x = tx0 - 1 + hp % HW;
+  y = ty0 - 1 + hp / HWD;
+  x = tx0 - 1 + hp % HWD;
   return y >= 0 && y < H && x >= 0 && x < W;
 }
 
@@ -124,15 +136,15 @@ struct StageCopy {
 // (if s.halo) channels c0 .. c0 + BK - 1 of the part on the halo of tile
 // (n, ty0, tx0), zero outside the image and past cin (the source size gives
 // the zero fill).
-template <int BN>
+template <int BN, int HWD = HW, int HHD = HH>
 __device__ __forceinline__ void stage_async(const StageCopy& s, int H, int W) {
   for (int idx = threadIdx.x; idx < weight_slab_elems(BN) / 8; idx += kThreads)
     cp_async16(s.w_s + idx * 16, s.slab + idx * 8, 16);
   if (!s.halo) return;
-  for (int idx = threadIdx.x; idx < HPIX * (BK / 8); idx += kThreads) {
+  for (int idx = threadIdx.x; idx < HaloShape<HWD, HHD>::kPix * (BK / 8); idx += kThreads) {
     const int hp = idx / (BK / 8), v = idx % (BK / 8);
     int y, xx;
-    const bool ok = halo_pixel(hp, s.ty0, s.tx0, H, W, y, xx) && s.c0 + v * 8 < s.cin;
+    const bool ok = halo_pixel<HWD>(hp, s.ty0, s.tx0, H, W, y, xx) && s.c0 + v * 8 < s.cin;
     const uint16_t* src =
         ok ? s.x + ((static_cast<long long>(s.n) * H + y) * W + xx) * s.cin + s.c0 + v * 8
            : s.x;
@@ -142,17 +154,19 @@ __device__ __forceinline__ void stage_async(const StageCopy& s, int H, int W) {
 
 // The same slice read two channels at a time with 2-byte loads, for a part
 // that cannot take 16-byte copies; halo_store_pairs puts it into the ring.
-__device__ __forceinline__ void halo_load_pairs(uint32_t (&r)[kPairIters], const uint16_t* x,
-                                                int cin, int c0, int n, int ty0, int tx0,
-                                                int H, int W) {
+template <int HWD = HW, int HHD = HH>
+__device__ __forceinline__ void halo_load_pairs(
+    uint32_t (&r)[HaloShape<HWD, HHD>::kPairIters], const uint16_t* x, int cin, int c0, int n,
+    int ty0, int tx0, int H, int W) {
+  using Halo = HaloShape<HWD, HHD>;
 #pragma unroll
-  for (int j = 0; j < kPairIters; ++j) {
+  for (int j = 0; j < Halo::kPairIters; ++j) {
     const int idx = j * kThreads + threadIdx.x;
     const int hp = idx / (BK / 2), c = c0 + idx % (BK / 2) * 2;
     int y, xx;
     // Every lane loads, a masked one from the part's first element, so the
     // loads are straight-line code and all in flight together.
-    const bool ok = idx < kPairs && halo_pixel(hp, ty0, tx0, H, W, y, xx) && c < cin;
+    const bool ok = idx < Halo::kPairs && halo_pixel<HWD>(hp, ty0, tx0, H, W, y, xx) && c < cin;
     const bool ok1 = ok && c + 1 < cin;
     const uint16_t* src =
         ok ? x + ((static_cast<long long>(n) * H + y) * W + xx) * cin + c : x;
@@ -162,12 +176,14 @@ __device__ __forceinline__ void halo_load_pairs(uint32_t (&r)[kPairIters], const
   }
 }
 
-__device__ __forceinline__ void halo_store_pairs(uint16_t* halo,
-                                                 const uint32_t (&r)[kPairIters]) {
+template <int HWD = HW, int HHD = HH>
+__device__ __forceinline__ void halo_store_pairs(
+    uint16_t* halo, const uint32_t (&r)[HaloShape<HWD, HHD>::kPairIters]) {
+  using Halo = HaloShape<HWD, HHD>;
 #pragma unroll
-  for (int j = 0; j < kPairIters; ++j) {
+  for (int j = 0; j < Halo::kPairIters; ++j) {
     const int idx = j * kThreads + threadIdx.x;
-    if (idx < kPairs)
+    if (idx < Halo::kPairs)
       *reinterpret_cast<uint32_t*>(halo + idx / (BK / 2) * LDS + idx % (BK / 2) * 2) = r[j];
   }
 }
@@ -266,6 +282,113 @@ __device__ __forceinline__ void mma_stage(uint32_t halo_s, uint32_t w_s, int war
       for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
         for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[tap & 1][mt][ks][i]) :: "memory");
+  }
+}
+
+struct ConvArgs {
+  TileIn in;
+  const uint16_t* wpk;            // this output-channel tile's slabs
+  const float* add;               // (B, 3, W, cout) or null
+  const float* scale;             // (cout,), multiplies add; or null
+  const float* bias;              // (cout,) or null
+  __nv_bfloat16* out;             // (B, H, W, cout)
+  int H, W, cout;
+  int nbase;                      // first output channel of this tile
+  int relu;
+  int vec_out;                    // 16-byte stores: cout % 8 == 0, aligned
+  int tiles_x, tiles_per_image, ntiles;
+};
+
+struct TilePos {
+  int n, ty0, tx0;
+};
+
+__device__ __forceinline__ TilePos tile_pos(const ConvArgs& a, int tile) {
+  TilePos t;
+  t.n = tile / a.tiles_per_image;
+  const int r = tile % a.tiles_per_image;
+  t.ty0 = r / a.tiles_x * TH;
+  t.tx0 = r % a.tiles_x * TW;
+  return t;
+}
+
+// add * scale + bias, ReLU and the rounding to bf16, eight tile pixels of one
+// tile row at a time.  scale_s and bias_s: this output tile's BN values in
+// shared memory (1 and 0 past cout): read from device memory inside this
+// loop, between the stores, they cost a trip to L2 each.  Where the output
+// rows take 16-byte stores (cout % 8 == 0), the warp passes the 8 x BN values through its own `stage` rows in
+// shared memory (16-byte chunks swizzled by row, so neither side has bank
+// conflicts) and writes whole 16-byte chunks, pixel after pixel: a store
+// instruction then fills complete 128-byte lines where the fragment layout
+// would touch eight lines with 16 bytes each.
+template <int NT>
+__device__ __forceinline__ void epilogue(const ConvArgs& a, const TilePos& t, int warp,
+                                         int lane, const float (&acc)[2][NT][4],
+                                         uint16_t* stage, const float* scale_s,
+                                         const float* bias_s) {
+  constexpr int BN = NT * 8;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int H = a.H, W = a.W, cout = a.cout;
+  const float* add = a.add;
+  auto swizzle = [](int row) { return NT == 8 ? (row & 7) : ((row >> 1) & 3); };
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int yy = t.ty0 + tile_row(warp, mt);
+    if (yy >= H) continue;
+    const int sel = yy == 0 ? 0 : (yy == H - 1 ? 2 : 1);
+    __nv_bfloat16* out_row = a.out + (static_cast<long long>(t.n) * H + yy) * W * cout;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int x0 = t.tx0 + half * 8;
+      const bool inside = x0 + g < W;
+      const float* add_row =
+          add && inside ? add + ((static_cast<long long>(t.n) * 3 + sel) * W + x0 + g) * cout
+                        : nullptr;
+      __nv_bfloat162 packed[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = nt * 8 + t4 * 2;
+        float val[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = acc[mt][nt][half * 2 + e];
+          if (add_row && a.nbase + c + e < cout)
+            s += __ldg(add_row + a.nbase + c + e) * scale_s[c + e];
+          s += bias_s[c + e];
+          val[e] = a.relu ? fmaxf(s, 0.f) : s;
+        }
+        packed[nt] = __floats2bfloat162_rn(val[0], val[1]);
+      }
+      if (a.vec_out) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<__nv_bfloat162*>(stage + g * BN + (nt ^ swizzle(g)) * 8 + t4 * 2) =
+              packed[nt];
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < 8 * NT / 32; ++j) {
+          const int row = (j * 32 + lane) / NT, chunk = (j * 32 + lane) % NT;
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(stage + row * BN + (chunk ^ swizzle(row)) * 8);
+          const int co = a.nbase + chunk * 8;
+          if (x0 + row < W && co < cout)
+            *reinterpret_cast<uint4*>(out_row + static_cast<long long>(x0 + row) * cout + co) = v;
+        }
+        __syncwarp();
+      } else if (inside) {
+        __nv_bfloat16* orow = out_row + static_cast<long long>(x0 + g) * cout;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int co = a.nbase + nt * 8 + t4 * 2;
+          if (co + 1 < cout && (cout & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + co) = packed[nt];
+          } else {
+            if (co < cout) orow[co] = packed[nt].x;
+            if (co + 1 < cout) orow[co + 1] = packed[nt].y;
+          }
+        }
+      }
+    }
   }
 }
 

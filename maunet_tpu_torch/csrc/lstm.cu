@@ -3,9 +3,9 @@
 // time, and the recurrent-weight gradient.
 //
 // Replaces the TPU kernels of maunet_tpu/ops/pallas/lstm.py:
-//   * _pallas_forward (body `_make_kernel`) -> lstm_last_hidden_kernel<false>;
+//   * _pallas_forward (body `_make_kernel`) -> lstm_last_hidden_kernel<false, KS>;
 //   * _pallas_forward_stash (body `_make_stash_kernel`) ->
-//     lstm_last_hidden_kernel<true>;
+//     lstm_last_hidden_kernel<true, KS>;
 //   * _pallas_backward (body `_make_bwd_kernel`) -> lstm_backward_kernel, plus
 //     lstm_dw_partial_kernel and lstm_dw_reduce_kernel for its dW sum.
 // x_proj (B, T, 4H) f32 already holds x.W_ih + b_ih + b_hh; W_hh is (H, 4H)
@@ -18,25 +18,48 @@
 // are strictly sequential (the backward does two such products per step).
 // The TPU walked the time axis as a sequential grid with (h, c) in scratch;
 // here one block per batch row loops over all T steps itself, so nothing
-// leaves the SM between steps:
-//   * W_hh stays in dynamic shared memory for the whole sequence (above the
-//     48 KB static limit, opted in with cudaFuncSetAttribute);
-//   * forward: thread j owns gate column j: it reads h from shared memory (a
-//     broadcast) and W_hh[:, j] (consecutive threads, consecutive words: no
-//     bank conflicts), and adds x_proj[b, t, j], loaded one step ahead so the
-//     device-memory latency hides behind the previous step's product; the
-//     first H threads then own one unit of the state each, keep c in a
-//     register and write h back to shared memory;
-//   * the stash variant also writes h and c of every step, and the frozen
-//     state for t >= length, so the backward never reads unwritten memory;
-//   * backward: thread j recomputes gate column j from the stashed h_{t-1};
-//     unit j < H forms the gate adjoints; then dh = dgates . W_hh^T reads
-//     W_hh along its rows, with thread (q, k) summing gate block q of row k.
-//     With a row stride of 4H = 384 words every thread of a warp would hit
-//     one bank, so W_hh is stored with a padded stride of 4H + 1 (147,840 B
-//     at H = 96): row k then starts in bank k mod 32 and both products are
-//     conflict-free.  Steps t >= length write zero adjoints and pass (dh, dc)
-//     through unchanged, so the loop starts at length - 1.
+// leaves the SM between steps.  A step's time is then the SM's issue of its
+// 36,864 FMAs (288 cycles on the SM's 128 f32 lanes at H = 96) plus the
+// latency of the chain that follows them: the sum across threads, the
+// activations, the cell and the hand-over of h to the next step.
+//
+// The forward (B and E), redesigned for the H100:
+//   * W_hh lives in registers for the whole sequence.  The four lanes
+//     4u .. 4u + 3 of a warp own unit u; lane s holds W_hh[k, g*H + u] for
+//     the k of slice s (KS consecutive k, zero past H) and all four gates g:
+//     4 * KS floats, 96 at H = 96.  Per step a lane runs four independent
+//     KS-deep FMA chains, one per gate, on h read from shared memory as
+//     float4 (lanes of one slice read the same address: a broadcast; the
+//     four slices start KS or KS + 4 words apart, so they fall on distinct
+//     banks), where W_hh in shared memory would cost two shared loads per FMA;
+//   * the four lanes' partial sums are reduce-scattered in three shuffles,
+//     so lane s ends with the whole pre-activation of gate s, adds its
+//     x_proj element and applies its gate's activation (tanh as
+//     2 sigmoid(2x) - 1, so the four lanes take one branch-free path with
+//     the exact expf); four more shuffles give every lane of the unit all
+//     four gates, and each lane computes the same c and h.  No thread idles
+//     while others do the cell, and no gate values go through shared memory;
+//   * h is double-buffered in shared memory, h_s[2][...]: step t reads
+//     buffer t & 1 and writes the other, so one __syncthreads per step
+//     orders both the reads and the writes;
+//   * x_proj is read kAhead = 8 steps ahead into a ring of registers (one
+//     element per lane and step: lane s of unit u reads gate s's column u),
+//     far longer than a device-memory round trip at the new step time;
+//   * units are padded to a multiple of 8 so every warp is whole; padding
+//     lanes hold zero weights and write nothing.  KS = 4 * ceil(H / 16) is a
+//     template argument (H <= 96, KS <= 24), which keeps every register
+//     index static;
+//   * the stash variant also writes h and c of every step (lanes 0 and 1 of
+//     the unit), and the frozen state for t >= length, so the backward never
+//     reads unwritten memory.
+// The backward (F, not redesigned): thread j recomputes gate column j from
+// the stashed h_{t-1}; unit j < H forms the gate adjoints; then
+// dh = dgates . W_hh^T reads W_hh along its rows, with thread (q, k) summing
+// gate block q of row k.  With a row stride of 4H = 384 words every thread
+// of a warp would hit one bank, so W_hh is stored with a padded stride of
+// 4H + 1 (147,840 B at H = 96): row k then starts in bank k mod 32 and both
+// products are conflict-free.  Steps t >= length write zero adjoints and
+// pass (dh, dc) through unchanged, so the loop starts at length - 1.
 //
 // dW: the TPU kernel accumulates dW += h_{t-1}^T . dgates in its body, which
 // works because its grid runs in order on one core.  Blocks on the card run
@@ -54,61 +77,99 @@ namespace {
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-template <bool STASH>
-__global__ void lstm_last_hidden_kernel(const float* __restrict__ xp,
-                                        const float* __restrict__ whh,
-                                        const int* __restrict__ lengths,
-                                        float* __restrict__ out,
-                                        float* __restrict__ h_all,
-                                        float* __restrict__ c_all, int T, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  float* w_s = smem;         // (H, 4H)
-  float* h_s = w_s + H * G;  // (H,)
-  float* g_s = h_s + H;      // (4H,)
-  const int j = threadIdx.x;  // gate column; blockDim.x == 4H
-  const int b = blockIdx.x;
-  const float* x_row = xp + static_cast<long long>(b) * T * G;
-  float* h_row = STASH ? h_all + static_cast<long long>(b) * T * H : nullptr;
-  float* c_row = STASH ? c_all + static_cast<long long>(b) * T * H : nullptr;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFwdMaxHidden = 96;
+constexpr int kFwdMaxThreads = 4 * kFwdMaxHidden;
+constexpr int kAhead = 8;  // steps of x_proj in flight ahead of the step that adds them
 
-  for (int i = j; i < H * G; i += G) w_s[i] = whh[i];
-  if (j < H) h_s[j] = 0.f;
+// The shared-memory word where slice `s` of h starts: KS words apart, or
+// KS + 4 where KS is a multiple of 16 (which would put all four on one bank).
+template <int KS>
+__host__ __device__ constexpr int slice_stride() { return KS % 16 == 0 ? KS + 4 : KS; }
+
+template <bool STASH, int KS>
+__global__ void __launch_bounds__(kFwdMaxThreads, 1)
+lstm_last_hidden_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
+                        const int* __restrict__ lengths, float* __restrict__ out,
+                        float* __restrict__ h_all, float* __restrict__ c_all, int T, int H) {
+  constexpr int SS = slice_stride<KS>();
+  __shared__ __align__(16) float h_s[2][4 * SS];
+  const int G = 4 * H;
+  const int u = threadIdx.x >> 2;   // unit
+  const int s = threadIdx.x & 3;    // k slice; after the reduction, gate
+  const int base = threadIdx.x & 28;  // lane of slice 0 of this unit
+  const bool real = u < H;
+  const int b = blockIdx.x;
+  const int slot = u / KS * SS + u % KS;  // where unit u's h lives in h_s
+
+  float w[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    const int k = s * KS + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) w[j][g] = real && k < H ? whh[k * G + g * H + u] : 0.f;
+  }
+  for (int i = threadIdx.x; i < 2 * 4 * SS; i += blockDim.x) (&h_s[0][0])[i] = 0.f;
   const int len = max(0, min(lengths[b], T));
-  float c = 0.f;  // state of unit j, for j < H
-  float x_next = len > 0 ? x_row[j] : 0.f;
+  // Lane s of unit u adds x_proj[b, t, s*H + u]: gate s's column u.
+  const float* x_col = xp + static_cast<long long>(b) * T * G + s * H + u;
+  float xr[kAhead];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) xr[i] = real && i < len ? x_col[static_cast<long long>(i) * G] : 0.f;
+  float* h_row = STASH ? h_all + static_cast<long long>(b) * T * H + u : nullptr;
+  float* c_row = STASH ? c_all + static_cast<long long>(b) * T * H + u : nullptr;
+  float c = 0.f, h = 0.f;
+  const bool hi2 = s & 2, hi1 = s & 1, is_g = s == 2;
   __syncthreads();
 
-  for (int t = 0; t < len; ++t) {
-    float acc = x_next;
-    if (t + 1 < len) x_next = x_row[(t + 1) * G + j];
-#pragma unroll 8
-    for (int k = 0; k < H; ++k) acc = fmaf(h_s[k], w_s[k * G + j], acc);
-    g_s[j] = acc;
-    __syncthreads();
-    if (j < H) {
-      const float ig = sigmoid(g_s[j]);
-      const float fg = sigmoid(g_s[H + j]);
-      const float gg = tanhf(g_s[2 * H + j]);
-      const float og = sigmoid(g_s[3 * H + j]);
+  for (int t0 = 0; t0 < len; t0 += kAhead) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const int t = t0 + i;
+      if (t >= len) break;
+      const float* hs = h_s[t & 1] + s * SS;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < KS; j += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(hs + j);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[g] = fmaf(hv.x, w[j][g], acc[g]);
+          acc[g] = fmaf(hv.y, w[j + 1][g], acc[g]);
+          acc[g] = fmaf(hv.z, w[j + 2][g], acc[g]);
+          acc[g] = fmaf(hv.w, w[j + 3][g], acc[g]);
+        }
+      }
+      // Reduce-scatter over the unit's four lanes: across lane pairs s, s^2
+      // keep gates (s & 2) and (s & 2) + 1, then across s, s^1 keep gate s.
+      float keep0 = hi2 ? acc[2] : acc[0], keep1 = hi2 ? acc[3] : acc[1];
+      keep0 += __shfl_xor_sync(kFull, hi2 ? acc[0] : acc[2], 2);
+      keep1 += __shfl_xor_sync(kFull, hi2 ? acc[1] : acc[3], 2);
+      float pre = (hi1 ? keep1 : keep0) + __shfl_xor_sync(kFull, hi1 ? keep0 : keep1, 1);
+      pre += xr[i];
+      if (real && t + kAhead < len) xr[i] = x_col[static_cast<long long>(t + kAhead) * G];
+      const float sg = sigmoid(is_g ? 2.f * pre : pre);
+      const float act = is_g ? 2.f * sg - 1.f : sg;
+      const float ig = __shfl_sync(kFull, act, base);
+      const float fg = __shfl_sync(kFull, act, base + 1);
+      const float gg = __shfl_sync(kFull, act, base + 2);
+      const float og = __shfl_sync(kFull, act, base + 3);
       c = fg * c + ig * gg;
-      const float h = og * tanhf(c);
-      h_s[j] = h;
-      if (STASH) {
-        h_row[t * H + j] = h;
-        c_row[t * H + j] = c;
+      h = og * tanhf(c);
+      if (real && s == 0) h_s[(t + 1) & 1][slot] = h;
+      if (STASH && real) {
+        if (s == 0) h_row[static_cast<long long>(t) * H] = h;
+        if (s == 1) c_row[static_cast<long long>(t) * H] = c;
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  if (j < H) {
-    const float h = h_s[j];
-    out[b * H + j] = h;
-    if (STASH) {
-      for (int t = len; t < T; ++t) {  // the frozen state, as the TPU kernel writes it
-        h_row[t * H + j] = h;
-        c_row[t * H + j] = c;
-      }
+  if (!real) return;
+  if (s == 0) out[b * H + u] = h;
+  if (STASH) {  // the frozen state, as the TPU kernel writes it
+    for (int t = len; t < T; ++t) {
+      if (s == 0) h_row[static_cast<long long>(t) * H] = h;
+      if (s == 1) c_row[static_cast<long long>(t) * H] = c;
     }
   }
 }
@@ -261,47 +322,59 @@ __global__ void lstm_dw_reduce_kernel(const float* __restrict__ partial,
   dw[i] = s;
 }
 
-size_t forward_smem(int H) {
-  return sizeof(float) * (static_cast<size_t>(H) * 4 * H + 5 * H);
+template <bool STASH, int KS>
+cudaError_t launch_forward_ks(const float* xp, const float* whh, const int* lengths,
+                              float* out, float* h_all, float* c_all, int B, int T, int H,
+                              cudaStream_t stream) {
+  const int threads = 4 * ((H + 7) / 8 * 8);
+  lstm_last_hidden_kernel<STASH, KS><<<B, threads, 0, stream>>>(xp, whh, lengths, out,
+                                                               h_all, c_all, T, H);
+  return cudaGetLastError();
+}
+
+template <bool STASH>
+cudaError_t launch_forward(const void* x_proj, const void* w_hh, const void* lengths,
+                           void* out, void* h_all, void* c_all, int B, int T, int H,
+                           void* stream) {
+  if (B == 0) return cudaSuccess;
+  if (H < 1 || H > kFwdMaxHidden) return cudaErrorInvalidValue;
+  const auto xp = static_cast<const float*>(x_proj);
+  const auto whh = static_cast<const float*>(w_hh);
+  const auto lens = static_cast<const int*>(lengths);
+  const auto o = static_cast<float*>(out);
+  const auto ha = static_cast<float*>(h_all);
+  const auto ca = static_cast<float*>(c_all);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch ((H + 15) / 16) {  // KS = 4 * ceil(H / 16)
+    case 1: return launch_forward_ks<STASH, 4>(xp, whh, lens, o, ha, ca, B, T, H, st);
+    case 2: return launch_forward_ks<STASH, 8>(xp, whh, lens, o, ha, ca, B, T, H, st);
+    case 3: return launch_forward_ks<STASH, 12>(xp, whh, lens, o, ha, ca, B, T, H, st);
+    case 4: return launch_forward_ks<STASH, 16>(xp, whh, lens, o, ha, ca, B, T, H, st);
+    case 5: return launch_forward_ks<STASH, 20>(xp, whh, lens, o, ha, ca, B, T, H, st);
+    default: return launch_forward_ks<STASH, 24>(xp, whh, lens, o, ha, ca, B, T, H, st);
+  }
 }
 
 }  // namespace
 
-// Each entry point returns the launch's cudaError_t.  4H threads per block,
-// so H <= 256; the shared-memory opt-in limit (227 KB) caps H at 119 for the
-// forward and at 118 for the backward.
+// Each entry point returns the launch's cudaError_t.  The forward takes
+// 1 <= H <= 96 (W_hh in registers: 4 * ceil(H / 16) * 4 floats a lane); the
+// backward has 4H threads per block and holds W_hh in shared memory, which the
+// 227 KB opt-in caps at H = 118.
 
 extern "C" int maunet_lstm_last_hidden(const void* x_proj, const void* w_hh,
                                        const void* lengths, void* out, int B,
                                        int T, int H, void* stream) {
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = forward_smem(H);
-  cudaError_t err = cudaFuncSetAttribute(lstm_last_hidden_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_last_hidden_kernel<false><<<B, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x_proj), static_cast<const float*>(w_hh),
-      static_cast<const int*>(lengths), static_cast<float*>(out), nullptr, nullptr,
-      T, H);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_forward<false>(x_proj, w_hh, lengths, out, nullptr,
+                                                nullptr, B, T, H, stream));
 }
 
 extern "C" int maunet_lstm_forward_stash(const void* x_proj, const void* w_hh,
                                          const void* lengths, void* out,
                                          void* h_all, void* c_all, int B, int T,
                                          int H, void* stream) {
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = forward_smem(H);
-  cudaError_t err = cudaFuncSetAttribute(lstm_last_hidden_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_last_hidden_kernel<true><<<B, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x_proj), static_cast<const float*>(w_hh),
-      static_cast<const int*>(lengths), static_cast<float*>(out),
-      static_cast<float*>(h_all), static_cast<float*>(c_all), T, H);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_forward<true>(x_proj, w_hh, lengths, out, h_all, c_all,
+                                               B, T, H, stream));
 }
 
 extern "C" int maunet_lstm_backward(const void* x_proj, const void* w_hh,

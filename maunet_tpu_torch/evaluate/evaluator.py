@@ -22,8 +22,8 @@ from the JAX evaluator, both deliberate:
 
 Both CSVs are written with the ``csv`` module as ``DataFrame.to_csv`` would
 write them: ``None`` and NaN as empty fields, booleans as ``True``/``False``,
-floats by ``repr``.  Left out: the device mesh, trackers, and sharded splits
-(a split with a shard index raises).
+floats by ``repr``.  The test split is read packed or per sample
+(``data.open_split``).  Left out: the device mesh and trackers.
 """
 
 from __future__ import annotations
@@ -39,9 +39,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from maunet_tpu_torch.data.dataset import Batch, NpzDataset, make_batches
+from maunet_tpu_torch.data import open_split
+from maunet_tpu_torch.data.dataset import Batch, make_batches
 from maunet_tpu_torch.data.pipeline import host_tensors, prefetch_to_device, to_device
 from maunet_tpu_torch.data.schema import NormalizationStats, parse_sample_filename
+from maunet_tpu_torch.data.shards import INDEX_FILE as SHARD_INDEX_FILE
 from maunet_tpu_torch.evaluate.checkpoint import LoadedModel, load_any_checkpoint
 from maunet_tpu_torch.evaluate.metrics import (
     NUM_CLASSES,
@@ -55,8 +57,6 @@ from maunet_tpu_torch.utils.dw import DW_CLASSES
 
 log = logging.getLogger(__name__)
 
-# The shard index of a packed split (maunet_tpu/data/shards.py INDEX_FILE).
-SHARD_INDEX_FILE = "shards_index.json"
 # Batches whose metric tensors may wait on the device before the oldest is
 # fetched: enough to keep the device busy while the host formats rows.
 MAX_IN_FLIGHT = 4
@@ -182,12 +182,7 @@ def evaluate_checkpoint(
         log.warning("Normalization metrics not found. Using raw data.")
 
     train_cities = known_cities_from_train_dir(os.path.join(data_dir, "train"))
-    test_dir = os.path.join(data_dir, "test")
-    if os.path.exists(os.path.join(test_dir, SHARD_INDEX_FILE)):
-        raise NotImplementedError(
-            f"{test_dir} is a packed (sharded) split; the port reads per-sample "
-            ".npz splits only")
-    ds = NpzDataset(test_dir, temporal_length=cfg.temporal_length)
+    ds = open_split(data_dir, "test", cfg.temporal_length)
 
     channels = list(cfg.target_channels)
     results: list[dict] = []

@@ -287,14 +287,19 @@ class VGGBlock(nn.Module):
             kept = self._kept[which] = (key, made)
         return kept[1]
 
+    @staticmethod
+    def _split(parts: Sequence[torch.Tensor], hw: tuple[int, int]) -> tuple:
+        """What a conv's kept constants depend on in its input: each part's
+        channels and whether it is a broadcast embedding."""
+        return tuple((p.shape[-1], tuple(p.shape[1:3]) == (1, 1) and hw != (1, 1))
+                     for p in parts)
+
     def _conv_kept(self, which: str, parts: Sequence[torch.Tensor], conv: nn.Conv2d,
                    bn: nn.BatchNorm2d | None) -> torch.Tensor:
         """:func:`conv_bn_relu` with the conv's constants kept between calls."""
         cd = self.compute_dtype
         hw, spatial, weights, bcast = split_parts(parts, conv, cd)
-        split = tuple((p.shape[-1], tuple(p.shape[1:3]) == (1, 1) and hw != (1, 1))
-                      for p in parts)
-        scale, bias, weight = self._constants(which, conv, bn, split, weights)
+        scale, bias, weight = self._constants(which, conv, bn, self._split(parts, hw), weights)
         if uses_fused_kernel(conv.out_channels):
             return pvgg.conv3x3_fused(spatial, weight, add=embedding_add(bcast, hw),
                                       relu=True)
@@ -314,11 +319,19 @@ class VGGBlock(nn.Module):
             return conv_bn_relu_train([x], self.conv2, self.bn2, cd)
         if self.takes_pair_kernel():
             hw, spatial, weights, bcast = split_parts(list(parts), self.conv1, cd)
-            scale1, bias1 = bn_affine(self.conv1, self.bn1)
-            scale2, bias2 = bn_affine(self.conv2, self.bn2)
-            return pvgg.conv3x3_pair_fused(
-                spatial, weights, self.conv2.weight, scale1=scale1, bias1=bias1,
-                scale2=scale2, bias2=bias2, add=embedding_add(bcast, hw))
+            add = embedding_add(bcast, hw)
+            if torch.is_grad_enabled():
+                scale1, bias1 = bn_affine(self.conv1, self.bn1)
+                scale2, bias2 = bn_affine(self.conv2, self.bn2)
+                return pvgg.conv3x3_pair_fused(
+                    spatial, weights, self.conv2.weight, scale1=scale1, bias1=bias1,
+                    scale2=scale2, bias2=bias2, add=add)
+            # The same kept constants as the two single-conv launches use.
+            _, _, w1 = self._constants("conv1", self.conv1, self.bn1,
+                                       self._split(parts, hw), weights)
+            _, _, w2 = self._constants("conv2", self.conv2, self.bn2,
+                                       ((self.conv2.in_channels, False),), [self.conv2.weight])
+            return pvgg.conv3x3_pair_fused(spatial, w1, w2, add=add)
         if torch.is_grad_enabled():
             x = conv_bn_relu(list(parts), self.conv1, self.bn1, cd)
             return conv_bn_relu([x], self.conv2, self.bn2, cd)

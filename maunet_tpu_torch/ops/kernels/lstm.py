@@ -20,10 +20,13 @@ from torch.autograd.function import once_differentiable
 
 from maunet_tpu_torch.ops.kernels import _build
 
-# Dynamic shared memory of the 227 KB opt-in, in floats: the forward holds
-# W_hh (H x 4H) and 5H more, the backward W_hh at a padded row stride
-# (H x (4H + 1)) and 13H more.
+# Shared memory of the 227 KB opt-in, in floats: the backward holds W_hh at a
+# padded row stride (H x (4H + 1)) and 13H more.  The forward holds W_hh in
+# registers (4 * KS floats a lane, KS = 4 * ceil(H / 16)), which caps H at 96,
+# and only h in shared memory: two buffers of four slices of KS words (KS + 4
+# where KS is a multiple of 16, so the slices fall on distinct banks).
 _SMEM_FLOATS = 232_448 // 4
+FWD_MAX_HIDDEN = 96
 # dW's B*T rows are cut into at most this many slices, each a multiple of
 # the kernel's 32-row chunk: at H = 96 that is 36 output tiles x 8 slices,
 # 288 blocks for the 132 SMs.
@@ -129,8 +132,14 @@ def lstm_dw_plain(h_all: torch.Tensor, dx_proj: torch.Tensor,
     return torch.einsum("btk,btj->kj", h_prev, dx_proj.float())
 
 
+def _fwd_slice(hidden: int) -> int:
+    """KS: the k each of a unit's four lanes sums over, a multiple of 4."""
+    return 4 * -(-hidden // 16)
+
+
 def _fwd_smem_floats(hidden: int) -> int:
-    return hidden * 4 * hidden + 5 * hidden
+    ks = _fwd_slice(hidden)
+    return 2 * 4 * (ks + 4 if ks % 16 == 0 else ks)
 
 
 def _bwd_smem_floats(hidden: int) -> int:
@@ -138,9 +147,10 @@ def _bwd_smem_floats(hidden: int) -> int:
 
 
 def _check_lstm_args(what: str, x_proj, w_hh, lengths, smem_floats: int,
-                     extra=()):
-    """Validation of the CUDA branch: shapes, dtypes, devices, contiguity
-    and the shared-memory bound on H."""
+                     extra=(), max_hidden: int | None = None):
+    """Validation of the CUDA branch: shapes, dtypes, devices, contiguity,
+    the range of H the kernel takes (``max_hidden``) and the shared-memory
+    bound on H."""
     _build.require(x_proj.dim() == 3 and x_proj.shape[2] % 4 == 0, what,
                    f"x_proj must be (B, T, 4H), got {tuple(x_proj.shape)}")
     b, t, four_h = x_proj.shape
@@ -159,6 +169,10 @@ def _check_lstm_args(what: str, x_proj, w_hh, lengths, smem_floats: int,
         _build.require(arr.device == x_proj.device, what, f"{name} on {arr.device}")
         _build.require(arr.dtype == dtype, what, f"{name} must be {dtype}")
         _build.require(arr.is_contiguous(), what, f"{name} must be contiguous")
+    if max_hidden is not None:
+        _build.require(1 <= hidden <= max_hidden, what,
+                       f"hidden size {hidden} is outside 1..{max_hidden}: the forward "
+                       f"kernel holds W_hh in registers, 4 * ceil(H / 16) * 4 floats a lane")
     _build.require(smem_floats <= _SMEM_FLOATS, what,
                    f"hidden size {hidden} needs {4 * smem_floats} B of shared "
                    f"memory, over the {4 * _SMEM_FLOATS} B opt-in")
@@ -174,7 +188,8 @@ def lstm_forward_stash(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if _build.on_cpu(x_proj, what):
         return lstm_forward_stash_plain(x_proj, w_hh, lengths)
     b, t, hidden = _check_lstm_args(what, x_proj, w_hh, lengths,
-                                    _fwd_smem_floats(x_proj.shape[-1] // 4))
+                                    _fwd_smem_floats(x_proj.shape[-1] // 4),
+                                    max_hidden=FWD_MAX_HIDDEN)
     dev = x_proj.device
     out = torch.empty((b, hidden), dtype=torch.float32, device=dev)
     h_all = torch.empty((b, t, hidden), dtype=torch.float32, device=dev)
@@ -290,7 +305,8 @@ def lstm_last_hidden(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if _build.on_cpu(x_proj, what):
         return lstm_last_hidden_scan(x_proj, w_hh, lengths)
     b, t, hidden = _check_lstm_args(what, x_proj, w_hh, lengths,
-                                    _fwd_smem_floats(x_proj.shape[-1] // 4))
+                                    _fwd_smem_floats(x_proj.shape[-1] // 4),
+                                    max_hidden=FWD_MAX_HIDDEN)
     out = torch.empty((b, hidden), dtype=torch.float32, device=x_proj.device)
     fn = _build.function("maunet_lstm_last_hidden",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3

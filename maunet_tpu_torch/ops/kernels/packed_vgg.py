@@ -15,9 +15,10 @@ caller that keeps the :class:`PreparedConv` (``models/blocks.VGGBlock`` in
 eval mode) pays for none of that at later calls.
 
 ``conv3x3_pair_fused`` (``packed_pair_fused``, kernel
-``csrc/conv3x3_pair.cu``) computes a whole VGGBlock, two such convs with
-ReLU, in one launch; the mid activation is rounded to the parts' dtype
-between them (``packed_vgg.py:359-360``) and never reaches device memory.
+``csrc/conv3x3_pair.cu`` on the same main loop) computes a whole VGGBlock,
+two such convs with ReLU, in one launch, from two :class:`PreparedConv`; the
+mid activation is rounded to the parts' dtype between them
+(``packed_vgg.py:359-360``) and never reaches device memory.
 Each kernel's header says what bounds it on the H100.
 """
 
@@ -178,39 +179,10 @@ def conv3x3_fused_plain(parts: Sequence[torch.Tensor],
     return y.to(dtype).contiguous()
 
 
-def _require_epilogue_in(prepared: PreparedConv, scale, bias) -> None:
-    _build.require(scale is None and bias is None, "conv3x3_fused",
+def _require_epilogue_in(prepared: PreparedConv, scale, bias,
+                         what: str = "conv3x3_fused") -> None:
+    _build.require(scale is None and bias is None, what,
                    "prepared weights carry their scale and bias")
-
-
-def _check_conv_inputs(what: str, parts: Sequence[torch.Tensor],
-                       weights: Sequence[torch.Tensor], add: torch.Tensor | None,
-                       **vectors: torch.Tensor | None) -> tuple[int, int, int, int]:
-    """What both kernels ask of a conv's inputs; returns (B, H, W, cout).
-    ``vectors`` are further tensors that must lie on the parts' device."""
-    _build.require(1 <= len(parts) <= MAX_PARTS, what,
-                   f"takes 1-{MAX_PARTS} parts, got {len(parts)}")
-    _build.require(len(weights) == len(parts), what, "one weight slice per part")
-    b, h, w = parts[0].shape[:3]
-    cout = weights[0].shape[0]
-    dev = parts[0].device
-    for p, wt in zip(parts, weights):
-        _build.require(p.dim() == 4 and tuple(p.shape[:3]) == (b, h, w), what,
-                       f"parts must share (B, H, W), got {tuple(p.shape)}")
-        _build.require(p.device == dev and p.dtype == torch.bfloat16, what,
-                       f"parts must be bf16 on {dev}, got {p.dtype} on {p.device}")
-        _build.require(p.is_contiguous(), what, "parts must be contiguous")
-        _build.require(tuple(wt.shape) == (cout, p.shape[3], 3, 3), what,
-                       f"weight {tuple(wt.shape)} does not match part "
-                       f"{tuple(p.shape)}")
-    for name, t in (*(("weight", wt) for wt in weights), ("add", add),
-                    *vectors.items()):
-        if t is not None:
-            _build.require(t.device == dev, what, f"{name} on {t.device}, not {dev}")
-    if add is not None:
-        _build.require(tuple(add.shape) == (b, 3, w, cout), what,
-                       f"add must be {(b, 3, w, cout)}, got {tuple(add.shape)}")
-    return b, h, w, cout
 
 
 def _check_prepared_inputs(what: str, parts: Sequence[torch.Tensor],
@@ -246,23 +218,6 @@ def _check_prepared_inputs(what: str, parts: Sequence[torch.Tensor],
         raise ValueError(f"{what}: add must be {(b, 3, w, prepared.cout)}, "
                          f"got {tuple(add.shape)}")
     return b, h, w, prepared.cout
-
-
-def _kernel_weights(ws: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """(cout, cin_p, 3, 3) -> the kernels' (9, cout, cin_p): the input
-    channels of one tap and output channel are contiguous, as the kernels' K
-    slices read them."""
-    return [wt.permute(2, 3, 0, 1).reshape(9, wt.shape[0], -1).contiguous()
-            for wt in ws]
-
-
-def _pointer_arrays(parts: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]):
-    """Host arrays of the parts' and weights' device pointers and the parts'
-    channel counts, as the C entry points take them."""
-    xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
-    wps = (ctypes.c_void_p * len(parts))(*(wt.data_ptr() for wt in ws))
-    cins = (ctypes.c_int * len(parts))(*(p.shape[3] for p in parts))
-    return xs, wps, cins
 
 
 def conv3x3_fused(parts: Sequence[torch.Tensor],
@@ -322,9 +277,27 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
 conv3x3_fused.launches = 0
 
 
+def _check_second_conv(what: str, dev: torch.device, cmid: int,
+                       prepared: PreparedConv) -> int:
+    """What the pair kernel asks of its second conv; returns cout.  On every
+    launch's path, so a message is put together only when its check fails."""
+    if prepared.cins != (cmid,):
+        raise ValueError(f"{what}: weight2 for {prepared.cins} input channels does not "
+                         f"follow a {cmid}-channel mid")
+    if cmid > PAIR_MAX_CHANNELS or prepared.cout > PAIR_MAX_CHANNELS:
+        raise ValueError(f"{what}: takes mid and output widths up to {PAIR_MAX_CHANNELS}, "
+                         f"got {cmid} and {prepared.cout}")
+    if prepared.packed.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: weight2 prepared in {prepared.packed.dtype}, not bf16")
+    for name, t in (("weight2", prepared.packed), ("bias2", prepared.bias)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, not {dev}")
+    return prepared.cout
+
+
 def conv3x3_pair_fused_plain(parts: Sequence[torch.Tensor],
-                             weights1: Sequence[torch.Tensor],
-                             weight2: torch.Tensor, *,
+                             weights1: Sequence[torch.Tensor] | PreparedConv,
+                             weight2: torch.Tensor | PreparedConv, *,
                              scale1: torch.Tensor | None = None,
                              bias1: torch.Tensor | None = None,
                              scale2: torch.Tensor | None = None,
@@ -334,13 +307,13 @@ def conv3x3_pair_fused_plain(parts: Sequence[torch.Tensor],
     activation is rounded to the parts' dtype between them."""
     mid = conv3x3_fused_plain(parts, weights1, scale=scale1, bias=bias1,
                               add=add, relu=True)
-    return conv3x3_fused_plain([mid], [weight2], scale=scale2, bias=bias2,
-                               relu=True)
+    w2 = weight2 if isinstance(weight2, PreparedConv) else [weight2]
+    return conv3x3_fused_plain([mid], w2, scale=scale2, bias=bias2, relu=True)
 
 
 def conv3x3_pair_fused(parts: Sequence[torch.Tensor],
-                       weights1: Sequence[torch.Tensor],
-                       weight2: torch.Tensor, *,
+                       weights1: Sequence[torch.Tensor] | PreparedConv,
+                       weight2: torch.Tensor | PreparedConv, *,
                        scale1: torch.Tensor | None = None,
                        bias1: torch.Tensor | None = None,
                        scale2: torch.Tensor | None = None,
@@ -351,8 +324,12 @@ def conv3x3_pair_fused(parts: Sequence[torch.Tensor],
     ``parts`` and ``weights1`` as :func:`conv3x3_fused` takes them, with
     ``cmid`` output channels; ``weight2``: (cout, cmid, 3, 3); ``scale1``,
     ``bias1`` (cmid,) and ``scale2``, ``bias2`` (cout,): each conv's epilogue
-    vectors; ``add``: conv1's compact (B, 3, W, cmid) pre-scale term.
-    Returns (B, H, W, cout) in the parts' dtype.
+    vectors; ``add``: conv1's compact (B, 3, W, cmid) pre-scale term.  Either
+    conv's weights may instead be the :class:`PreparedConv` that
+    :func:`prepare_conv3x3` made of them with their scale and bias (as
+    ``models/blocks.VGGBlock`` keeps them); raw weights are prepared on the
+    fly, at every call, and give the same bits.  Returns (B, H, W, cout) in
+    the parts' dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which takes bf16 parts of any H, W and cin with cmid and cout up to 64.
@@ -362,37 +339,39 @@ def conv3x3_pair_fused(parts: Sequence[torch.Tensor],
     if _build.on_cpu(parts[0], what):
         return conv3x3_pair_fused_plain(parts, weights1, weight2, add=add, **kw)
     # No backward, as conv3x3_fused: train mode runs cuDNN convs.
-    _build.require_no_grad(what, *parts, *weights1, weight2, add, *kw.values())
-    b, h, w, cmid = _check_conv_inputs(what, parts, weights1, add,
-                                       weight2=weight2, **kw)
-    _build.require(weight2.dim() == 4 and tuple(weight2.shape[1:]) == (cmid, 3, 3),
-                   what, f"weight2 {tuple(weight2.shape)} does not follow a "
-                   f"{cmid}-channel mid")
-    cout = weight2.shape[0]
-    _build.require(cmid <= PAIR_MAX_CHANNELS and cout <= PAIR_MAX_CHANNELS, what,
-                   f"takes mid and output widths up to {PAIR_MAX_CHANNELS}, "
-                   f"got {cmid} and {cout}")
-    _build.require(b <= 65535, what, f"batch {b} exceeds the launch grid")
-    dev = parts[0].device
-    ws1, add = _fold(weights1, scale1, add, torch.bfloat16)
-    (w2,), _ = _fold([weight2], scale2, None, torch.bfloat16)
-    ws1 = _kernel_weights(ws1)
-    (w2,) = _kernel_weights([w2])
-    add = None if add is None else add.contiguous()
-    bias1 = None if bias1 is None else bias1.float().contiguous()
-    bias2 = None if bias2 is None else bias2.float().contiguous()
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
-    xs, wps, cins = _pointer_arrays(parts, ws1)
+    raw = [] if isinstance(weights1, PreparedConv) else list(weights1)
+    raw += [] if isinstance(weight2, PreparedConv) else [weight2]
+    _build.require_no_grad(what, *parts, add, *kw.values(), *raw)
+    if isinstance(weights1, PreparedConv):
+        _require_epilogue_in(weights1, scale1, bias1, what)
+        prepared1 = weights1
+    else:
+        _build.require(len(weights1) >= 1, what, "one weight slice per part")
+        prepared1 = prepare_conv3x3(weights1, scale1, bias1, torch.bfloat16)
+    b, h, w, cmid = _check_prepared_inputs(what, parts, prepared1, add)
+    if isinstance(weight2, PreparedConv):
+        _require_epilogue_in(weight2, scale2, bias2, what)
+        prepared2 = weight2
+    else:
+        _build.require(weight2.dim() == 4 and tuple(weight2.shape[2:]) == (3, 3), what,
+                       f"weight2 must be (cout, cmid, 3, 3), got {tuple(weight2.shape)}")
+        prepared2 = prepare_conv3x3([weight2], scale2, bias2, torch.bfloat16)
+    cout = _check_second_conv(what, parts[0].device, cmid, prepared2)
+    add = None if add is None else add.float().contiguous()
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=parts[0].device)
+    xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+    cins = (ctypes.c_int * len(parts))(*prepared1.cins)
     fn = _build.function("maunet_conv3x3_pair",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int]
                          + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                         + [ctypes.c_void_p])
-    _build.check(fn(ctypes.addressof(xs), ctypes.addressof(wps),
-                    ctypes.addressof(cins), len(parts), w2.data_ptr(),
+                         + [ctypes.c_void_p] * 2)
+    _build.check(fn(ctypes.addressof(xs), prepared1.packed.data_ptr(),
+                    ctypes.addressof(cins), len(parts), prepared2.packed.data_ptr(),
                     None if add is None else add.data_ptr(),
-                    None if bias1 is None else bias1.data_ptr(),
-                    None if bias2 is None else bias2.data_ptr(),
+                    None if prepared1.bias is None else prepared1.bias.data_ptr(),
+                    None if prepared2.bias is None else prepared2.bias.data_ptr(),
                     out.data_ptr(), b, h, w, cmid, cout,
+                    None if prepared1.scale is None else prepared1.scale.data_ptr(),
                     _build.stream_of(out)), what)
     conv3x3_pair_fused.launches += 1
     return out

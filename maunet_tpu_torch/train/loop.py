@@ -19,7 +19,8 @@ from typing import Callable
 
 import torch
 
-from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+from maunet_tpu_torch.data import open_split
+from maunet_tpu_torch.data.dataset import make_batches
 from maunet_tpu_torch.data.pipeline import prefetch_to_device
 from maunet_tpu_torch.data.transforms import RandomFlip
 from maunet_tpu_torch.losses import get_loss_fn
@@ -58,11 +59,11 @@ class Trainer:
         os.makedirs(work_dir, exist_ok=True)
         self.loss_fn = get_loss_fn(cfg.loss)
         self.flip = RandomFlip(cfg.seed)
-        self.train_ds = NpzDataset(os.path.join(data_dir, "train"),
-                                   temporal_length=cfg.temporal_length,
+        # Packed shards or per-sample .npz, as the split holds them; the flip
+        # is drawn in __getitem__, in loading order, for either.
+        self.train_ds = open_split(data_dir, "train", cfg.temporal_length,
                                    transform=self.flip)
-        self.val_ds = NpzDataset(os.path.join(data_dir, "val"),
-                                 temporal_length=cfg.temporal_length)
+        self.val_ds = open_split(data_dir, "val", cfg.temporal_length)
         self.csv = CSVLogger(os.path.join(
             work_dir, f"{study_name}_trial{trial_id}_train_log.csv"))
         self.state: TrainState | None = None

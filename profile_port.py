@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port on one CUDA card: the U-Net's serving forward,
 with ``--train`` one train step, with ``--eval`` one evaluation batch of
-each model family, or with ``--conv`` the fused 3x3 conv kernel alone.
+each model family, with ``--conv`` the fused 3x3 conv kernel alone, or with
+``--lstm`` the LSTM kernels alone.
 
     python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
     python3 profile_port.py --eval [--trace PATH]    # default build/port_eval_trace.json
     python3 profile_port.py --conv                   # no trace
+    python3 profile_port.py --lstm                   # no trace
 
 The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
 (seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
@@ -50,6 +52,16 @@ events around single calls, median of 10), on the device (events around ten
 calls back to back), with raw weights, beside cuDNN's conv with the same
 epilogue and the bound (``chip_smoke.cudnn_block``, ``conv_work``).
 
+The ``--lstm`` mode compiles ``csrc/lstm.cu`` alone with ``-Xptxas -v`` and
+prints each kernel's registers and spills; holds B (``lstm_last_hidden``)
+and E (``lstm_forward_stash``) against their plain versions at
+``chip_smoke.LSTM_EDGE_CASES`` (lengths 0, 1 and T in one batch, B = 1,
+H = 50, 64 and 96, T = 64 and 828); and at the serving (B = 8), evaluation
+and training (B = 16) batches of ``chip_smoke.py`` (T = 828, H = 96) prints
+B's, E's and F's device times (CUDA events around ten calls back to back)
+beside cuDNN's LSTM (``nn.LSTM`` over the raw series at full length, the
+forward alone and the forward with the backward of its last hidden state).
+
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
 in the ``self_device_time_total`` of the aten operator that launched it, so
@@ -85,7 +97,7 @@ OTHER = "other torch ops (epilogues, BN fold, casts, cat, pool)"
 # (``<true>``, mangled ``ILb1E``); every train-mode conv is cuDNN's.
 TRAIN_FAMILIES = (
     ("A conv3x3_fused", ("conv3x3_fused",)),
-    ("E lstm stash forward", ("lstm_last_hidden_kernel<true>", "lstm_last_hidden_kernelILb1E")),
+    ("E lstm stash forward", ("lstm_last_hidden_kernel<true", "lstm_last_hidden_kernelILb1E")),
     ("B lstm_last_hidden", ("lstm_last_hidden",)),
     ("F lstm backward", ("lstm_backward",)),
     ("dW lstm_dw", ("lstm_dw",)),
@@ -260,6 +272,98 @@ CONV_CHECKS = (
     (3, (16, 16), (8,), 33, False))
 
 
+def ptxas_report(source: str, label) -> None:
+    """Compile ``csrc/<source>`` alone with ``-Xptxas -v`` and print each
+    kernel's registers and spills; ``label(entry)`` names a kernel from
+    ptxas's line for its mangled name."""
+    from maunet_tpu_torch.ops.kernels import _build
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ptxas = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(_build.CSRC / source), "-o", os.path.join(tmpdir, "k.o")],
+            capture_output=True, text=True, check=True).stderr
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            print(f"ptxas, {label(line)}:", end=" ")
+        elif "registers" in line or "spill" in line:
+            print(line.replace("ptxas info    :", "").strip(), end="; " if "spill" in line else "\n")
+
+
+def conv_kernel_label(entry: str) -> str:
+    nt, stages = re.search(r"conv3x3_fused_kernelILi(\d+)ELi(\d+)E", entry).groups()
+    return f"BN = {8 * int(nt)} with {stages} stages"
+
+
+def lstm_kernel_label(entry: str) -> str:
+    """``lstm_last_hidden_kernel<stash, KS>`` or the kernel's plain name,
+    from its mangled name."""
+    m = re.search(r"lstm_last_hidden_kernelILb(\d)ELi(\d+)E", entry)
+    if m:
+        return f"lstm_last_hidden_kernel<{'true' if m.group(1) == '1' else 'false'}, KS = {m.group(2)}>"
+    m = re.search(r"(lstm_\w+?_kernel)", entry)
+    return m.group(1) if m else entry
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time per call: CUDA events around ``calls`` calls back to back
+    (median of 5)."""
+    import chip_smoke as cs
+
+    return cs.cuda_ms(lambda: [fn() for _ in range(calls)], reps=5) / calls
+
+
+def lstm_checks(dev: torch.device) -> None:
+    """B and E against their plain versions at ``chip_smoke.LSTM_EDGE_CASES``."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import lstm
+
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for hidden, t, lens in cs.LSTM_EDGE_CASES:
+        x_proj, w_hh, lengths = cs.lstm_inputs(g, dev, hidden, t, lens)
+        with torch.no_grad():
+            got = (lstm.lstm_last_hidden(x_proj, w_hh, lengths),
+                   *lstm.lstm_forward_stash(x_proj, w_hh, lengths))
+            want = (lstm.lstm_last_hidden_scan(x_proj, w_hh, lengths),
+                    *lstm.lstm_forward_stash_plain(x_proj, w_hh, lengths))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ok = err <= 1e-4 and all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"check B and E, H = {hidden}, T = {t}, lengths {lens}: max_abs_err={err:.3e} "
+              f"(tol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"lstm H = {hidden}, T = {t}, lengths {lens} disagrees")
+
+
+def lstm_times(dev: torch.device) -> None:
+    """B, E and F at the three batches of ``chip_smoke.py``, beside cuDNN."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import lstm
+
+    hidden = 96
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    cudnn = torch.nn.LSTM(1, hidden, batch_first=True).to(dev)
+    for label, lens in (("serving", cs.SERVING_LENGTHS), ("evaluation", cs.EVAL_LENGTHS),
+                        ("training", cs.TRAIN_LENGTHS)):
+        x_proj, w_hh, lengths = cs.lstm_inputs(g, dev, hidden, cs.T_SERIES, lens)
+        b = len(lens)
+        series = torch.randn((b, cs.T_SERIES, 1), generator=g, device=dev)
+        grad = torch.randn((b, hidden), generator=g, device=dev)
+        with torch.no_grad():
+            _, h_all, c_all = lstm.lstm_forward_stash(x_proj, w_hh, lengths)
+            b_ms = device_ms(lambda: lstm.lstm_last_hidden(x_proj, w_hh, lengths))
+            e_ms = device_ms(lambda: lstm.lstm_forward_stash(x_proj, w_hh, lengths))
+            f_ms = device_ms(lambda: lstm.lstm_backward(x_proj, w_hh, lengths, h_all, c_all, grad))
+            cudnn_ms = device_ms(lambda: cudnn(series))
+        series_g = series.clone().requires_grad_()
+        cudnn_bwd_ms = device_ms(lambda: torch.autograd.grad(
+            cudnn(series_g)[1][0].sum(), series_g))
+        print(f"time {label} ({b}, {cs.T_SERIES}, {4 * hidden}), {sum(lens)} steps in all: "
+              f"B {b_ms:.4f} ms, E {e_ms:.4f}, F {f_ms:.4f} on the device; cuDNN LSTM forward "
+              f"{cudnn_ms:.4f}, forward and backward {cudnn_bwd_ms:.4f}")
+
+
 def conv_profile(dev: torch.device) -> None:
     """``--conv``: kernel A alone: registers, agreement, times."""
     import math
@@ -268,17 +372,7 @@ def conv_profile(dev: torch.device) -> None:
 
     from maunet_tpu_torch.ops.kernels import _build, packed_vgg
 
-    with tempfile.TemporaryDirectory() as tmpdir:
-        ptxas = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             str(_build.CSRC / "conv3x3_fused.cu"), "-o", os.path.join(tmpdir, "conv.o")],
-            capture_output=True, text=True, check=True).stderr
-    for line in ptxas.splitlines():
-        if "Compiling entry" in line:
-            nt, stages = re.search(r"conv3x3_fused_kernelILi(\d+)ELi(\d+)E", line).groups()
-            print(f"ptxas, BN = {8 * int(nt)} with {stages} stages:", end=" ")
-        elif "registers" in line or "spill" in line:
-            print(line.replace("ptxas info    :", "").strip(), end="; " if "spill" in line else "\n")
+    ptxas_report("conv3x3_fused.cu", conv_kernel_label)
 
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
 
@@ -291,10 +385,6 @@ def conv_profile(dev: torch.device) -> None:
         scale, bias = 0.5 + torch.rand(cout, generator=g, device=dev), randn(cout, std=0.1)
         add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
         return parts, weights, scale, bias, add
-
-    def device_ms(fn, calls: int = 10) -> float:
-        """Device time per launch: events around ``calls`` calls back to back."""
-        return cs.cuda_ms(lambda: [fn() for _ in range(calls)], reps=5) / calls
 
     for key in CONV_CHECKS:
         parts, weights, scale, bias, add = case(*key)
@@ -349,7 +439,7 @@ def conv_profile(dev: torch.device) -> None:
     torch.cuda.synchronize()
 
 
-def main() -> int:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
@@ -358,11 +448,17 @@ def main() -> int:
                       help="profile one evaluation batch of each model family")
     mode.add_argument("--conv", action="store_true",
                       help="check and time the fused 3x3 conv kernel alone")
+    mode.add_argument("--lstm", action="store_true",
+                      help="check and time the LSTM kernels alone")
     parser.add_argument("--trace", default=None,
                         help="where the Chrome trace is written (default: "
                              "build/port_forward_trace.json, port_train_trace.json "
                              "or port_eval_trace.json)")
-    args = parser.parse_args()
+    return parser.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -374,12 +470,17 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
     if args.conv:
-        conv_profile(torch.device("cuda", 0))
+        conv_profile(dev)
+    elif args.lstm:
+        ptxas_report("lstm.cu", lstm_kernel_label)
+        lstm_checks(dev)
+        lstm_times(dev)
     elif args.train:
-        train_profile(trace, torch.device("cuda", 0))
+        train_profile(trace, dev)
     elif args.eval:
-        eval_profile(trace, torch.device("cuda", 0))
+        eval_profile(trace, dev)
     else:
         serve_profile(trace)
     return 0

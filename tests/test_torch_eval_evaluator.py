@@ -7,6 +7,7 @@ import csv
 import json
 import math
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from maunet_tpu.interop.torch_export import export_torch_checkpoint
 from maunet_tpu.models import UrbanPredictor as JaxUrbanPredictor
 
 from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+from maunet_tpu_torch.data.shards import pack_dataset
 from maunet_tpu_torch.data.synthetic import generate_dataset
 from maunet_tpu_torch.evaluate import evaluator
 from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
@@ -179,6 +181,9 @@ def test_predict_batch_is_the_models_forward(data_root, unet_checkpoint):
 
 def test_known_cities_reads_a_shard_index_and_sharded_splits_are_refused(
         data_root, unet_checkpoint, tmp_path):
+    """Known cities come from a packed train split's index; a packed test
+    split is refused where it holds a shorter series than the evaluator asks
+    for (one of the right length is read: test_packed_split_writes_the_same_csv)."""
     train = tmp_path / "data" / "train"
     train.mkdir(parents=True)
     names = os.listdir(os.path.join(data_root, "train"))
@@ -187,14 +192,31 @@ def test_known_cities_reads_a_shard_index_and_sharded_splits_are_refused(
     got = known_cities_from_train_dir(str(train))
     assert got and got <= want
     assert known_cities_from_train_dir(str(tmp_path / "missing")) == set()
-    test = tmp_path / "data" / "test"
-    test.mkdir()
-    (test / evaluator.SHARD_INDEX_FILE).write_text(json.dumps({"names": []}))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        evaluate_checkpoint(unet_checkpoint, data_dir=str(tmp_path / "data"),
+    pack_dataset(os.path.join(data_root, "test"), str(tmp_path / "data" / "test"),
+                 shard_size=4, temporal_length=T // 2)
+    with pytest.raises(ValueError, match="exceeds packed length"):
+        evaluate_checkpoint(unet_checkpoint, TrainConfig(temporal_length=T),
+                            data_dir=str(tmp_path / "data"),
                             output_dir=str(tmp_path / "out"), device="cpu")
     with pytest.raises(ValueError, match="data_dir"):
         evaluate_checkpoint(unet_checkpoint, device="cpu")
+
+
+def test_packed_split_writes_the_same_csv(data_root, unet_checkpoint, tmp_path):
+    """``evaluate_checkpoint`` reads a packed test split (and a packed train
+    split's index for the known cities) and writes the per-sample split's CSV."""
+    packed = tmp_path / "packed"
+    for split in SPLITS:
+        pack_dataset(os.path.join(data_root, split), str(packed / split), shard_size=4,
+                     temporal_length=T)
+    shutil.copy(os.path.join(data_root, "normalization_metrics.json"), packed)
+    name = "t_unet_emb_7_job1_evaluation.csv"
+    for root, out in ((data_root, "flat"), (str(packed), "packed")):
+        evaluate_checkpoint(unet_checkpoint, TrainConfig(temporal_length=T), data_dir=root,
+                            study_name="t", jobid="1", batch_size=4,
+                            output_dir=str(tmp_path / out), precision="float32", device="cpu")
+    flat = (tmp_path / "flat" / name).read_text()
+    assert (tmp_path / "packed" / name).read_text() == flat and flat.count("\n") > 12
 
 
 def test_write_csv_writes_what_pandas_writes(tmp_path):

@@ -162,3 +162,10 @@ def test_carried_infer_hyperparams_matches_jax(prefix, checkpoint, study_name):
     sd = {prefix + k[len("model."):]: v for k, v in sd.items()}
     assert (infer_hyperparams(sd, checkpoint, study_name)
             == jax_infer_hyperparams(sd, checkpoint, study_name))
+
+
+def test_engine_keeps_img_size(engines):
+    jax_engine, _, path = engines
+    port = PlannerEngine(path, device="cpu", img_size=HW)
+    assert port.img_size == jax_engine.img_size == HW
+    assert PlannerEngine(path, device="cpu").img_size == 512

@@ -35,6 +35,7 @@ TRAINING_MODULES = [
     "maunet_tpu_torch.train.metrics", "maunet_tpu_torch.train.loop",
     "maunet_tpu_torch.data.dataset", "maunet_tpu_torch.data.transforms",
     "maunet_tpu_torch.data.synthetic", "maunet_tpu_torch.data.pipeline",
+    "maunet_tpu_torch.data.shards",
 ]
 
 

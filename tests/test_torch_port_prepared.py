@@ -207,14 +207,17 @@ def _edit_bias_under_no_grad(block):
 @pytest.mark.parametrize("change", [_load_other_state, _edit_through_data, _optimizer_step,
                                     _edit_running_var, _edit_bias_under_no_grad],
                          ids=lambda f: f.__name__.strip("_"))
-@pytest.mark.parametrize("wide", [False, True], ids=["fused", "wide"])
-def test_block_constants_follow_their_sources(change, wide, monkeypatch):
+@pytest.mark.parametrize("path", ["fused", "wide", "pair"])
+def test_block_constants_follow_their_sources(change, path, monkeypatch):
     """After each way of changing what the constants came from, the block
     answers as a newly built one does.  ``wide`` sends the convs down the
-    path of the convs too wide for the fused kernel."""
-    if wide:
+    path of the convs too wide for the fused kernel, ``pair`` through the
+    pair kernel, which takes both convs' kept prepared weights."""
+    if path == "wide":
         monkeypatch.setattr(blocks, "FUSED_KERNEL_MAX_COUT", 0)
     block, parts = _block()
+    block.fuse_pair = path == "pair"
+    assert block.takes_pair_kernel() == (path == "pair")
     with torch.no_grad():
         before = block(parts)
     assert torch.equal(before, _fresh(block, parts))
@@ -227,7 +230,24 @@ def test_block_constants_follow_their_sources(change, wide, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_second_forward_builds_nothing(dtype):
+    _second_forward_builds_nothing(*_block(dtype=dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_block_second_forward_builds_nothing(dtype):
+    """The pair path keeps the same two prepared convs as the two launches."""
     block, parts = _block(dtype=dtype)
+    block.fuse_pair = True
+    _second_forward_builds_nothing(block, parts, dtype)
+    built = blocks.VGGBlock.constants_built
+    with torch.no_grad():
+        pair = block(parts)
+        block.fuse_pair = False
+        assert torch.equal(block(parts), pair)
+    assert blocks.VGGBlock.constants_built == built
+
+
+def _second_forward_builds_nothing(block, parts, dtype):
     built, prepared = blocks.VGGBlock.constants_built, pvgg.prepare_conv3x3.calls
     with torch.no_grad():
         first = block(parts)
@@ -256,6 +276,58 @@ def test_block_second_forward_builds_nothing(dtype):
     with torch.no_grad():
         assert torch.equal(block(parts), first)
     assert blocks.VGGBlock.constants_built == built + 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_prepared_call_equals_raw_call(dtype):
+    parts, weights1, scale1, bias1, add = _case(4, 2, 9, 11, (5, 8), 7, dtype)
+    _, (weight2,), scale2, bias2, _ = _case(5, 2, 9, 11, (7,), 6)
+    raw = pvgg.conv3x3_pair_fused(parts, weights1, weight2, scale1=scale1, bias1=bias1,
+                                  scale2=scale2, bias2=bias2, add=add)
+    prepared = (pvgg.prepare_conv3x3(weights1, scale1, bias1, dtype),
+                pvgg.prepare_conv3x3([weight2], scale2, bias2, dtype))
+    got = pvgg.conv3x3_pair_fused(parts, *prepared, add=add)
+    assert got.dtype == dtype and got.shape == (2, 9, 11, 6) and torch.equal(got, raw)
+    mixed = pvgg.conv3x3_pair_fused(parts, prepared[0], weight2, scale2=scale2, bias2=bias2,
+                                    add=add)
+    assert torch.equal(mixed, raw)
+    with pytest.raises(ValueError, match="carry their scale and bias"):
+        pvgg.conv3x3_pair_fused(parts, prepared[0], prepared[1], bias2=bias2)
+
+
+def test_pair_prepared_weights_reach_the_kernel_unchanged(monkeypatch):
+    """The pair kernel's CUDA branch with prepared weights, against a
+    recording stand-in for the C entry point: nothing is prepared again, and
+    the pointers that go over are the prepared objects'; raw weights are
+    prepared at the call, both convs."""
+    from maunet_tpu_torch.ops.kernels import _build
+
+    calls = []
+    monkeypatch.setattr(_build, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(_build, "function",
+                        lambda name, argtypes: lambda *args: calls.append((name, args)) or 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    parts, weights1, scale1, bias1, add = _case(6, 2, 5, 7, (8, 3), 40, torch.bfloat16)
+    _, (weight2,), scale2, bias2, _ = _case(7, 2, 5, 7, (40,), 24)
+    p1 = pvgg.prepare_conv3x3(weights1, scale1, bias1)
+    p2 = pvgg.prepare_conv3x3([weight2], scale2, bias2)
+    made, launched = pvgg.prepare_conv3x3.calls, pvgg.conv3x3_pair_fused.launches
+    out = pvgg.conv3x3_pair_fused(parts, p1, p2, add=add)
+    assert out.shape == (2, 5, 7, 24) and out.dtype == torch.bfloat16
+    assert pvgg.prepare_conv3x3.calls == made
+    assert pvgg.conv3x3_pair_fused.launches == launched + 1
+    name, args = calls[-1]
+    assert name == "maunet_conv3x3_pair" and args[3] == 2 and args[9:14] == (2, 5, 7, 40, 24)
+    assert args[1] == p1.packed.data_ptr() and args[4] == p2.packed.data_ptr()
+    assert args[6] == p1.bias.data_ptr() and args[7] == p2.bias.data_ptr()
+    assert args[14] == p1.scale.data_ptr()
+    pvgg.conv3x3_pair_fused(parts, weights1, weight2, scale1=scale1, bias1=bias1,
+                            scale2=scale2, bias2=bias2, add=add)
+    assert pvgg.prepare_conv3x3.calls == made + 2
+    with pytest.raises(ValueError, match="does not follow"):
+        pvgg.conv3x3_pair_fused(parts, p1, pvgg.prepare_conv3x3([weight2[:, :39]]))
+    with pytest.raises(ValueError, match="not bf16"):
+        pvgg.conv3x3_pair_fused(parts, p1, pvgg.prepare_conv3x3([weight2], dtype=torch.float32))
 
 
 def test_block_with_gradients_reaches_the_parameters():

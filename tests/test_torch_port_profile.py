@@ -90,3 +90,39 @@ def test_train_family(profile_port, name, want):
 def test_eval_family(profile_port, name, want):
     assert profile_port.family(name, profile_port.EVAL_FAMILIES,
                                profile_port.EVAL_OTHER) == want
+
+
+@pytest.mark.parametrize("argv, mode", [
+    ([], None), (["--lstm"], "lstm"), (["--conv"], "conv"),
+    (["--train", "--trace", "t.json"], "train"), (["--eval"], "eval")])
+def test_parse_args_modes(profile_port, argv, mode):
+    args = profile_port.parse_args(argv)
+    modes = [m for m in ("train", "eval", "conv", "lstm") if getattr(args, m)]
+    assert modes == ([mode] if mode else [])
+    assert args.trace == ("t.json" if "--trace" in argv else None)
+
+
+@pytest.mark.parametrize("argv", [["--lstm", "--conv"], ["--lstm", "--train"], ["--lstm", "x"]])
+def test_lstm_mode_refuses_other_modes_and_arguments(profile_port, argv):
+    with pytest.raises(SystemExit):
+        profile_port.parse_args(argv)
+
+
+def test_lstm_mode_needs_a_card(profile_port, capsys):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without it")
+    assert profile_port.main(["--lstm"]) == 1
+    assert "cuda" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("entry, want", [
+    ("'_ZN12_GLOBAL__N_123lstm_last_hidden_kernelILb1ELi24EEEvPKfS2_PKiPfS5_S5_ii'",
+     "lstm_last_hidden_kernel<true, KS = 24>"),
+    ("'_ZN12_GLOBAL__N_123lstm_last_hidden_kernelILb0ELi16EEEvPKfS2_PKiPfS5_S5_ii'",
+     "lstm_last_hidden_kernel<false, KS = 16>"),
+    ("'_ZN12_GLOBAL__N_120lstm_backward_kernelEPKfS1_PKiS1_S1_S1_Pfii'", "lstm_backward_kernel"),
+])
+def test_lstm_kernel_label(profile_port, entry, want):
+    assert profile_port.lstm_kernel_label(f"ptxas info    : Compiling entry function {entry}") == want

@@ -221,9 +221,22 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     lstm.lstm_dw(torch.zeros(16, 828, 96), torch.zeros(16, 828, 384),
                  torch.zeros(16, dtype=torch.int32))
     assert calls[-1][1][8:10] == (8, 1664)    # 13,248 rows in 8 slices of 1,664
-    with pytest.raises(ValueError, match="shared memory"):
+    # The forward holds W_hh in registers: 1 <= H <= 96; the backward's
+    # shared memory caps H at 118.
+    with pytest.raises(ValueError, match="outside 1..96"):
         lstm.lstm_forward_stash(torch.zeros(1, 2, 4 * 120), torch.zeros(120, 480),
                                 torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="outside 1..96"):
+        lstm.lstm_last_hidden(torch.zeros(1, 2, 4 * 97), torch.zeros(97, 388),
+                              torch.ones(1, dtype=torch.int32))
+    for hd_ok in (50, 96):
+        lstm.lstm_forward_stash(torch.zeros(1, 2, 4 * hd_ok), torch.zeros(hd_ok, 4 * hd_ok),
+                                torch.ones(1, dtype=torch.int32))
+        assert calls[-1][1][6:9] == (1, 2, hd_ok)
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm.lstm_backward(torch.zeros(1, 2, 4 * 120), torch.zeros(120, 480),
+                           torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, 120),
+                           torch.zeros(1, 2, 120), torch.zeros(1, 120))
 
     # Grad enabled and an input that needs a gradient: the Function (E);
     # under no_grad: the inference kernel (B).
@@ -231,7 +244,8 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     lstm.lstm_last_hidden(xg, w, lens)
     with torch.no_grad():
         lstm.lstm_last_hidden(xg, w, lens)
-    assert [f.launches for f in counters] == [before[0] + 2, before[1] + 1,
+    # E: the first call, H = 50 and 96, the Function's forward.
+    assert [f.launches for f in counters] == [before[0] + 4, before[1] + 1,
                                               before[2] + 2, before[3] + 1]
 
     bf = torch.bfloat16
