@@ -26,10 +26,13 @@ Phases, one output line each (or a few for the kernel table):
    an evaluation batch (B = 16) gives A, B and C are checked here as well:
    the U-Net's three convs and four upsamples, U-Net++'s eleven distinct
    base-32 convs (up to five parts plus the embedding term) and its four
-   upsamples, and the LSTM at 16 lengths between T/2 and T.  B and E are
-   also held against their plain versions at the edges of what the forward
-   kernel takes (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
-   B = 1, H = 50, 64 and 96, T = 64 and 828);
+   upsamples, and the LSTM at 16 lengths between T/2 and T.  B, E and F
+   are also held against their plain versions at the edges of what the
+   kernels take (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
+   B = 1, H = 50, 64 and 96, T = 64 and 828).  F is two launches, the gate
+   terms of every step and then the recurrence: the first has a row of its
+   own (``lstm_gate_terms``) against its plain version, compared on the
+   steps t < length that it writes;
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
    and ``golden_unetpp.npz`` run on the card in bf16 and are held against the
    JAX package's recorded f32 outputs;
@@ -48,7 +51,8 @@ Phases, one output line each (or a few for the kernel table):
    samples, seeded): ``Trainer.train(epochs=1)``, then a second ``Trainer``
    resumes for epoch 2.  Losses and val losses must be finite, the step
    count must carry across the resume, and the best and last ``.pth`` must
-   exist.  The counters of E, F, dW and C must rise in the train steps, and
+   exist.  The counters of E, F (both of its launches), dW and C must rise
+   in the train steps (E, F and dW once a step), and
    those of A and B in validation.  From one saved state, one train step
    with the kernels and one with the plain versions patched in are compared;
    the best checkpoint then serves a ``predict`` through ``PlannerEngine``;
@@ -73,9 +77,10 @@ Phases, one output line each (or a few for the kernel table):
    turns (off, on, on, off).
 
 The line before the last is the kernel summary JSON: per kernel the launch
-count of its path (A, B, C: serving; E, F, dW: training; D: evaluation; G:
-the pair configuration), and over that path's shapes in phase 3 (B = 8 at
-256² for A and C, B = 8 for B, B = 16 for E, F, dW and D, the eleven
+count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
+evaluation; G: the pair configuration), and over that path's shapes in phase
+3 (B = 8 at 256² for A and C, B = 8 for B, B = 16 for E, F's two launches
+(the ``lstm_backward`` row times both), dW and D, the eleven
 eligible blocks at B = 8 for G; one launch per distinct shape) the largest
 error against the plain version and the summed kernel, plain, bound and
 library times.  The other shapes of phase 3 are pass/fail checks printed on
@@ -95,6 +100,8 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
   resize (f32) <= 1e-5 + 1e-5 |plain|;
   lstm, lstm stash forward (f32, 828 steps): h_last, h_all, c_all <= 1e-4;
   lstm backward (f32): dx_proj <= 1e-4 + 1e-4 |plain|;
+  lstm gate terms (f32, a 96-term product per gate, then the activations):
+    <= 1e-5 + 1e-5 |plain|;
   lstm dW (f32, a sum of B * T terms, 13,248 at B = 16):
     <= 1e-4 + 1e-3 max|plain|;
   golden fixtures, bf16 against f32: <= 3e-2 (the port's bf16 forward on
@@ -170,15 +177,18 @@ class KernelTable:
         self.rows: dict[str, dict] = {}
 
     def check(self, name: str, label: str, kernel, plain, atol: float,
-              rtol: float, on_path: bool, work, library=None) -> float:
+              rtol: float, on_path: bool, work, library=None, view=None) -> float:
         """Compare ``kernel()`` with ``plain()`` (a tensor, or a tuple of
         tensors compared one by one) and return the kernel's time.  ``work``
         = (bytes moved, operations, their type) gives the bound, and
         ``library`` is the one PyTorch call that computes the same function,
-        or None where there is none.  A shape of the path that the summary
-        line reads for this kernel (``on_path``) also enters its summary
-        row."""
+        or None where there is none.  ``view``, if given, picks what is
+        compared from each side (the part a kernel writes).  A shape of the
+        path that the summary line reads for this kernel (``on_path``) also
+        enters its summary row."""
         got, want = kernel(), plain()
+        if view is not None:
+            got, want = view(got), view(want)
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
         err = rel = 0.0
@@ -286,7 +296,7 @@ EVAL_BATCH = 16
 EVAL_LENGTHS = [828, 414, 700, 512, 621, 799, 450, 828, 733, 580, 666, 415, 777, 502, 640, 811]
 # The LSTM lengths of phase 3's predict_many batch (B=8) for B.
 SERVING_LENGTHS = [828, 828, 600, 414, 100, 1, 0, 827]
-# (hidden, T, lengths) of phase 3's edge-case checks of B and E.
+# (hidden, T, lengths) of phase 3's edge-case checks of B, E and F.
 LSTM_EDGE_CASES = [
     (96, T_SERIES, [0, 1, T_SERIES]), (96, 64, [64]), (64, 64, [64, 0, 1, 33]),
     (50, 64, [64, 1, 0, 17, 63]), (50, T_SERIES, [T_SERIES, 0, 1, 400]),
@@ -475,12 +485,20 @@ def check_kernels(table: KernelTable, dev) -> None:
                          steps * (2 * hidden * gates + 10 * gates), "f32"),
                         lambda: cudnn_lstm(series)[1][0])
 
-    # B and E at the edges of what the forward kernel takes: lengths 0, 1
-    # and T in one batch, B = 1, hidden sizes that do not fill the unit's
-    # k slices (50), fill them (64) or are the model's (96), T = 64 and 828.
+    # B, E and F at the edges of what the kernels take: lengths 0, 1 and T
+    # in one batch, B = 1, hidden sizes that do not fill a lane's weights
+    # (50), fill them (64) or are the model's (96), T = 64 and 828.
+    def backward_work(steps, rows, h, b):
+        """F's bytes (x_proj's active rows, the stash, W_hh, g and dx_proj)
+        and operations (the gate recompute and dh, two H x 4H products a
+        step, and the cell's terms)."""
+        return ((steps * 6 * h + h * 4 * h + b * h + rows * 4 * h) * 4,
+                steps * (16 * h * h + 80 * h), "f32")
+
     for edge_hidden, t, lens in LSTM_EDGE_CASES:
         steps, g4 = sum(lens), 4 * edge_hidden
         lens, x_proj, w_hh, label = lstm_case(lens, edge_hidden, t)
+        grad = randn(len(lens), edge_hidden)
         flops = steps * (2 * edge_hidden * g4 + 10 * g4)
         with torch.no_grad():
             table.check("lstm_last_hidden", label,
@@ -493,11 +511,19 @@ def check_kernels(table: KernelTable, dev) -> None:
                     lambda: lstm.lstm_forward_stash_plain(x_proj, w_hh, lens), 1e-4, 0.0,
                     False, (steps * g4 * 4 + edge_hidden * g4 * 4
                             + 2 * len(lens) * t * edge_hidden * 4, flops, "f32"))
+        _, h_all, c_all = lstm.lstm_forward_stash_plain(x_proj, w_hh, lens)
+        table.check("lstm_backward", label,
+                    lambda: lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad),
+                    lambda: lstm.lstm_backward_plain(x_proj, w_hh, lens, h_all, c_all, grad)[0],
+                    1e-4, 1e-4, False,
+                    backward_work(steps, len(lens) * t, edge_hidden, len(lens)))
 
-    # E, F and dW: the training batch (B=16, the trainer's default) with
-    # mixed lengths, and B=1.  F and dW read the plain version's stash, so
-    # both sides see the same inputs; the plain F also forms dW.  E and F
-    # have no single library call; dW's is the plain version's einsum.
+    # E, F (both launches, and the gate terms alone) and dW: the training
+    # batch (B=16, the trainer's default) with mixed lengths, and B=1.  F and
+    # dW read the plain version's stash, so both sides see the same inputs;
+    # the plain F also forms dW.  E, F and the gate terms have no single
+    # library call; dW's is the plain version's einsum.  The gate terms are
+    # compared where the kernel writes them, at t < length.
     for lens, on_path in [(TRAIN_LENGTHS, True), ([828], False)]:
         steps, rows = sum(lens), len(lens) * T_SERIES
         lens, x_proj, w_hh, label = lstm_case(lens)
@@ -510,12 +536,18 @@ def check_kernels(table: KernelTable, dev) -> None:
                     (steps * gates * 4 + weight_bytes + 2 * rows * hidden * 4,
                      steps * (2 * hidden * gates + 10 * gates), "f32"), None)
         _, h_all, c_all = lstm.lstm_forward_stash_plain(x_proj, w_hh, lens)
+        active = (torch.arange(T_SERIES, device=dev)[None, :] < lens[:, None])[..., None]
+        table.check("lstm_gate_terms", label,
+                    lambda: lstm.lstm_gate_terms(x_proj, w_hh, lens, h_all, c_all),
+                    lambda: lstm.lstm_gate_terms_plain(x_proj, w_hh, lens, h_all, c_all),
+                    1e-5, 1e-5, on_path,
+                    ((steps * (gates + 2 * hidden + 6 * hidden)) * 4 + weight_bytes,
+                     steps * (2 * hidden * gates + 20 * gates), "f32"), None,
+                    view=lambda terms: torch.where(active, terms, 0.0))
         table.check("lstm_backward", label,
                     lambda: lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad),
                     lambda: lstm.lstm_backward_plain(x_proj, w_hh, lens, h_all, c_all, grad)[0],
-                    1e-4, 1e-4, on_path,
-                    (steps * (gates + 2 * hidden) * 4 + weight_bytes + rows * gates * 4,
-                     steps * (4 * hidden * gates + 20 * gates), "f32"), None)
+                    1e-4, 1e-4, on_path, backward_work(steps, rows, hidden, len(lens)), None)
         dx = lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad)
         want = lstm.lstm_dw_plain(h_all, dx, lens)
         table.check("lstm_dw", label, lambda: lstm.lstm_dw(h_all, dx, lens),
@@ -765,7 +797,7 @@ def wrappers() -> dict:
 
     return {fn.__name__: fn for fn in (
         packed_vgg.conv3x3_fused, lstm.lstm_last_hidden, resize_pack.resize_pack,
-        lstm.lstm_forward_stash, lstm.lstm_backward, lstm.lstm_dw,
+        lstm.lstm_forward_stash, lstm.lstm_gate_terms, lstm.lstm_backward, lstm.lstm_dw,
         masked_stats.masked_class_sums, packed_vgg.conv3x3_pair_fused)}
 
 
@@ -834,11 +866,12 @@ def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
         if not os.path.exists(path):
             raise AssertionError(f"training path: {path} was not written")
     steps = 2 * steps_per_epoch
-    if not (launches["lstm_forward_stash"] == launches["lstm_backward"]
-            == launches["lstm_dw"] == steps):
-        raise AssertionError(f"training path: E, F and dW must launch once per step ({steps})")
-    missing = [name for name in ("lstm_forward_stash", "lstm_backward", "lstm_dw",
-                                 "resize_pack", "conv3x3_fused", "lstm_last_hidden")
+    if not (launches["lstm_forward_stash"] == launches["lstm_gate_terms"]
+            == launches["lstm_backward"] == launches["lstm_dw"] == steps):
+        raise AssertionError(f"training path: E, F's two launches and dW must launch "
+                             f"once per step ({steps})")
+    missing = [name for name in ("lstm_forward_stash", "lstm_gate_terms", "lstm_backward",
+                                 "lstm_dw", "resize_pack", "conv3x3_fused", "lstm_last_hidden")
                if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the training path: {missing}")
@@ -1099,6 +1132,8 @@ KERNEL_INFO = {
     "resize_pack": ("maunet_tpu_torch/csrc/resize_pack.cu",
                     "maunet_tpu/ops/pallas/resize_pack.py:216", "serving"),
     "lstm_forward_stash": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:290", "training"),
+    # F's first launch: the gate recompute of the TPU backward (lstm.py:247-248)
+    "lstm_gate_terms": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:387", "training"),
     "lstm_backward": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:334", "training"),
     # the dW sum that the TPU backward keeps in its body (lstm.py:266)
     "lstm_dw": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:334", "training"),

@@ -6,7 +6,9 @@
 //   * _pallas_forward (body `_make_kernel`) -> lstm_last_hidden_kernel<false, KS>;
 //   * _pallas_forward_stash (body `_make_stash_kernel`) ->
 //     lstm_last_hidden_kernel<true, KS>;
-//   * _pallas_backward (body `_make_bwd_kernel`) -> lstm_backward_kernel, plus
+//   * _pallas_backward (body `_make_bwd_kernel`) -> lstm_gate_terms_kernel (the
+//     gate recompute, lstm.py:247-248, for every step at once), then
+//     lstm_backward_kernel<KS> (the reverse recurrence), plus
 //     lstm_dw_partial_kernel and lstm_dw_reduce_kernel for its dW sum.
 // x_proj (B, T, 4H) f32 already holds x.W_ih + b_ih + b_hh; W_hh is (H, 4H)
 // f32; lengths (B,) i32.  Gate order (i, f, g, o); each sample's (h, c)
@@ -15,7 +17,7 @@
 // What bounds the forward and the backward on the H100: latency of the
 // T-step recurrence.  One step is a (1, H) x (H, 4H) product per row,
 // 73,728 FLOPs at H = 96, far too little to fill an SM, and the 828 steps
-// are strictly sequential (the backward does two such products per step).
+// are strictly sequential (so is the backward's dh = dgates . W_hh^T).
 // The TPU walked the time axis as a sequential grid with (h, c) in scratch;
 // here one block per batch row loops over all T steps itself, so nothing
 // leaves the SM between steps.  A step's time is then the SM's issue of its
@@ -52,26 +54,60 @@
 //   * the stash variant also writes h and c of every step (lanes 0 and 1 of
 //     the unit), and the frozen state for t >= length, so the backward never
 //     reads unwritten memory.
-// The backward (F, not redesigned): thread j recomputes gate column j from
-// the stashed h_{t-1}; unit j < H forms the gate adjoints; then
-// dh = dgates . W_hh^T reads W_hh along its rows, with thread (q, k) summing
-// gate block q of row k.  With a row stride of 4H = 384 words every thread
-// of a warp would hit one bank, so W_hh is stored with a padded stride of
-// 4H + 1 (147,840 B at H = 96): row k then starts in bank k mod 32 and both
-// products are conflict-free.  Steps t >= length write zero adjoints and
-// pass (dh, dc) through unchanged, so the loop starts at length - 1.
+// The backward (F), two launches:
+//   * lstm_gate_terms_kernel.  The gate recompute needs only x_proj and the
+//     stashed h_{t-1}, nothing the backward carries, so it leaves the serial
+//     chain: pre = x_proj + h_{t-1} . W_hh for every (b, t < length) at once,
+//     a (B*T x H) . (H x 4H) product (0.98 GFLOP at B = 16, T = 828), tiled
+//     64 steps x 32 units (x 4 gates) per block over k chunks of 32 in shared
+//     memory, hundreds of blocks for the 132 SMs.  Its epilogue writes the
+//     step's coefficients, terms (B, T, 6H) = [g_i, g_f, g_g, g_o, a, f] with
+//     tc = tanh(c_t): g_i = g i(1-i), g_f = c_{t-1} f(1-f), g_g = i(1-g^2),
+//     g_o = tc o(1-o), a = o(1-tc^2), so that the recurrence is
+//     dct = dc + dh a, d_o = dh g_o, d_{i,f,g} = dct g_{i,f,g}, dc = dct f.
+//     Rows t >= length are neither read nor written.  Bound: about 0.015 ms
+//     by operations, about 0.02 ms by the bytes it moves.
+//   * lstm_backward_kernel<KS>, the recurrence on B's layout.  What bounds it
+//     is the serial chain: 828 steps, each dh = dgates . W_hh^T, 36,864 FMAs
+//     at H = 96 issued by one SM (288 cycles on its 128 f32 lanes: 828 x 288
+//     cycles = 0.136 ms at 1.755 GHz), plus the chain's latency (the
+//     shuffles, a multiply-add, the hand-over of dgates, the barrier).  The
+//     old kernel also ran the gate recompute (a second 96-deep product), the
+//     cell's transcendentals and three barriers on that chain.  Now B's
+//     register layout, transposed: B's lane holds W_hh for four outputs (the
+//     gates of its unit) over a slice of KS inputs (h); here lane l of a group
+//     of 16 holds W_hh[4q + m, l*KS + v] for four outputs (units 4q..4q+3 of
+//     dh) over slice l of the 4H inputs (dgates), KS = 4 * ceil(H / 16), 96
+//     floats at H = 96, zero past H or 4H, for the whole sequence.  Each float
+//     of dgates read from shared memory then feeds four FMAs, as each h does
+//     in B.  With one unit per lane (a lane summing its unit's gate block)
+//     each float fed one FMA, four times B's loads per FMA, and the
+//     recurrence took 0.72 ms at the training batch, twice B's time (NVIDIA
+//     H100 80GB HBM3, 700 W).  dgates of the step sit
+//     in shared memory, double-buffered, in 16 slices at a stride that puts
+//     eight lanes' float4 reads on distinct banks (dgate_slice_stride).  A
+//     reduce-scatter over bits 3 and 2 of the lane (three shuffles) and a sum
+//     over bits 1 and 0 (two) leave dh of unit 4q + m on lanes 4m..4m+3,
+//     which are B's four lanes of that unit (u = tid / 4, s = tid % 4).  Each
+//     then computes dct = dc + dh a as B's lanes compute c, forms the adjoint
+//     of gate s and writes it to dx_proj and to the other buffer: one
+//     __syncthreads a step.  The terms come from a register ring read kAhead
+//     steps ahead.  Steps t >= length write zero adjoints and pass (dh, dc)
+//     through unchanged, so the loop starts at length - 1.
 //
 // dW: the TPU kernel accumulates dW += h_{t-1}^T . dgates in its body, which
 // works because its grid runs in order on one core.  Blocks on the card run
-// in no order and cannot share a sum, so dW is a second launch: a tiled
+// in no order and cannot share a sum, so dW is a launch of its own: a tiled
 // (H x B*T) . (B*T x 4H) product, split over the B*T rows into a fixed number
 // of slices (enough blocks for the 132 SMs), each slice writing its own
 // partial tile, and a reduce that adds the slices in order.  No atomics: a
 // repeated run gives the same bits.  At B = 16, T = 828, H = 96 it is 0.98
 // GFLOP and takes 0.15-0.21 ms, about 5 TFLOP/s: a plain smem-tiled product,
-// far from the FP32 pipes' peak, and 2-4% of the backward's time.  All sums
-// are in full f32, as the TPU kernels and the plain versions compute them.
+// far from the FP32 pipes' peak.  All sums are in full f32, as the TPU
+// kernels and the plain versions compute them.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,7 +116,7 @@ __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kFwdMaxHidden = 96;
 constexpr int kFwdMaxThreads = 4 * kFwdMaxHidden;
-constexpr int kAhead = 8;  // steps of x_proj in flight ahead of the step that adds them
+constexpr int kAhead = 8;  // steps of x_proj (or terms) in flight ahead of the step that uses them
 
 // The shared-memory word where slice `s` of h starts: KS words apart, or
 // KS + 4 where KS is a multiple of 16 (which would put all four on one bank).
@@ -174,88 +210,196 @@ lstm_last_hidden_kernel(const float* __restrict__ xp, const float* __restrict__ 
   }
 }
 
-__global__ void lstm_backward_kernel(const float* __restrict__ xp,
-                                     const float* __restrict__ whh,
-                                     const int* __restrict__ lengths,
-                                     const float* __restrict__ h_all,
-                                     const float* __restrict__ c_all,
-                                     const float* __restrict__ g,
-                                     float* __restrict__ dxp, int T, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int WS = G + 1;             // padded row stride of W_hh
-  float* w_s = smem;                // (H, 4H + 1)
-  float* hp_s = w_s + H * WS;       // (H,)  h_{t-1}
-  float* gate_s = hp_s + H;         // (4H,) gate pre-activations at t
-  float* dg_s = gate_s + G;         // (4H,) gate adjoints at t
-  float* part_s = dg_s + G;         // (4H,) partial sums of dgates . W_hh^T
-  const int j = threadIdx.x;        // blockDim.x == 4H
-  const int b = blockIdx.x;
-  const long long row = static_cast<long long>(b) * T;
-  const float* x_row = xp + row * G;
-  float* dx_row = dxp + row * G;
-  const float* h_row = h_all + row * H;
-  const float* c_row = c_all + row * H;
-  const int q = j / H;              // gate block this thread sums for dh
-  const int k = j - q * H;          // unit of dh this thread sums for
+constexpr int GT_ROWS = 64;   // steps per tile of the gate-terms product
+constexpr int GT_UNITS = 32;  // units per tile (blockDim.x), each with its four gate columns
+constexpr int GT_K = 32;      // k chunk held in shared memory
+constexpr int GT_TY = 8;      // blockDim.y; a thread owns GT_ROWS / GT_TY steps x 4 gates of a unit
 
-  for (int i = j; i < H * G; i += G) {
-    const int r = i / G;
-    w_s[r * WS + (i - r * G)] = whh[i];
-  }
+// terms[b, t] = [g_i, g_f, g_g, g_o, o(1 - tc^2), f] (6H) for t < length[b],
+// from pre = x_proj[b, t] + h_{t-1} . W_hh (h_{-1} = 0).  Grid
+// (ceil(T / GT_ROWS), B, ceil(H / GT_UNITS)); a tile past the row's length
+// returns at once.
+__global__ void __launch_bounds__(GT_UNITS * GT_TY)
+lstm_gate_terms_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
+                       const int* __restrict__ lengths, const float* __restrict__ h_all,
+                       const float* __restrict__ c_all, float* __restrict__ terms, int T,
+                       int H) {
+  __shared__ __align__(16) float h_s[GT_ROWS][GT_K];  // [step][k]: a warp reads one address
+  __shared__ float w_s[GT_K][4][GT_UNITS];            // [k][gate][unit]
+  constexpr int PER = GT_ROWS / GT_TY;
+  constexpr int NT = GT_UNITS * GT_TY;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * GT_UNITS + tx;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * GT_ROWS;
   const int len = max(0, min(lengths[b], T));
-  for (int t = len; t < T; ++t) dx_row[static_cast<long long>(t) * G + j] = 0.f;
-  float dh = 0.f, dc = 0.f;  // adjoints of unit j, for j < H
-  if (j < H) {
-    dh = g[b * H + j];
-    hp_s[j] = len > 1 ? h_row[(len - 2) * H + j] : 0.f;
-  }
-  float x_next = len > 0 ? x_row[static_cast<long long>(len - 1) * G + j] : 0.f;
-  __syncthreads();
+  if (t0 >= len) return;
+  const int u0 = blockIdx.z * GT_UNITS;
+  const int G = 4 * H;
+  const long long row0 = static_cast<long long>(b) * T;
+  float acc[PER][4] = {};
 
-  for (int t = len - 1; t >= 0; --t) {
-    // Gate pre-activations at t from the stashed h_{t-1}.
-    float acc = x_next;
-    if (t > 0) x_next = x_row[static_cast<long long>(t - 1) * G + j];
-#pragma unroll 8
-    for (int r = 0; r < H; ++r) acc = fmaf(hp_s[r], w_s[r * WS + j], acc);
-    gate_s[j] = acc;
-    __syncthreads();
-    if (j < H) {
-      const float ig = sigmoid(gate_s[j]);
-      const float fg = sigmoid(gate_s[H + j]);
-      const float gg = tanhf(gate_s[2 * H + j]);
-      const float og = sigmoid(gate_s[3 * H + j]);
-      const float ct = c_row[t * H + j];
-      const float cp = t > 0 ? c_row[(t - 1) * H + j] : 0.f;
-      const float tc = tanhf(ct);
-      const float d_o = dh * tc * og * (1.f - og);
-      const float dct = dc + dh * og * (1.f - tc * tc);
-      const float d_i = dct * gg * ig * (1.f - ig);
-      const float d_f = dct * cp * fg * (1.f - fg);
-      const float d_g = dct * ig * (1.f - gg * gg);
-      dg_s[j] = d_i;
-      dg_s[H + j] = d_f;
-      dg_s[2 * H + j] = d_g;
-      dg_s[3 * H + j] = d_o;
-      float* dx_t = dx_row + static_cast<long long>(t) * G;
-      dx_t[j] = d_i;
-      dx_t[H + j] = d_f;
-      dx_t[2 * H + j] = d_g;
-      dx_t[3 * H + j] = d_o;
-      dc = dct * fg;
-      hp_s[j] = t > 1 ? h_row[(t - 2) * H + j] : 0.f;  // h_{t-2} for the next step
+  for (int k0 = 0; k0 < H; k0 += GT_K) {
+    for (int i = tid; i < GT_ROWS * GT_K; i += NT) {
+      const int r = i / GT_K, kk = i % GT_K, t = t0 + r, k = k0 + kk;
+      h_s[r][kk] = t >= 1 && t < len && k < H ? h_all[(row0 + t - 1) * H + k] : 0.f;
+    }
+    for (int i = tid; i < GT_K * 4 * GT_UNITS; i += NT) {
+      const int kk = i / (4 * GT_UNITS), g = i / GT_UNITS % 4, j = i % GT_UNITS;
+      const int k = k0 + kk, u = u0 + j;
+      w_s[kk][g][j] = k < H && u < H ? whh[k * G + g * H + u] : 0.f;
     }
     __syncthreads();
-    // dh_{t-1}[k] = sum_j dgates[j] W_hh[k, j], gate block q by thread (q, k).
-    const float* wk = w_s + k * WS + q * H;
-    const float* dq = dg_s + q * H;
-    float p = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < H; ++r) p = fmaf(dq[r], wk[r], p);
-    part_s[j] = p;
+#pragma unroll
+    for (int kk = 0; kk < GT_K; kk += 4) {
+      float w[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) w[q][g] = w_s[kk + q][g][tx];
+      }
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float4 hv = *reinterpret_cast<const float4*>(&h_s[ty + GT_TY * i][kk]);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[i][g] = fmaf(hv.x, w[0][g], acc[i][g]);
+          acc[i][g] = fmaf(hv.y, w[1][g], acc[i][g]);
+          acc[i][g] = fmaf(hv.z, w[2][g], acc[i][g]);
+          acc[i][g] = fmaf(hv.w, w[3][g], acc[i][g]);
+        }
+      }
+    }
     __syncthreads();
-    if (j < H) dh = part_s[j] + part_s[H + j] + part_s[2 * H + j] + part_s[3 * H + j];
+  }
+
+  const int u = u0 + tx;
+  if (u >= H) return;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int t = t0 + ty + GT_TY * i;
+    if (t >= len) continue;
+    const long long n = row0 + t;
+    const float* x = xp + n * G + u;
+    const float ig = sigmoid(acc[i][0] + x[0]);
+    const float fg = sigmoid(acc[i][1] + x[H]);
+    const float gg = tanhf(acc[i][2] + x[2 * H]);
+    const float og = sigmoid(acc[i][3] + x[3 * H]);
+    const float tc = tanhf(c_all[n * H + u]);
+    const float cp = t > 0 ? c_all[(n - 1) * H + u] : 0.f;
+    float* out = terms + n * 6 * H + u;
+    out[0] = gg * ig * (1.f - ig);
+    out[H] = cp * fg * (1.f - fg);
+    out[2 * H] = ig * (1.f - gg * gg);
+    out[3 * H] = tc * og * (1.f - og);
+    out[4 * H] = og * (1.f - tc * tc);
+    out[5 * H] = fg;
+  }
+}
+
+// dgates (4H) is cut into 16 slices of KS words, one per lane of a unit
+// group; slice l starts at word l * SS, SS = KS or KS + 4 so that SS / 4 is
+// odd: the float4 reads of eight consecutive lanes then start on distinct
+// 16-byte bank groups and fill all 32 banks.
+template <int KS>
+__host__ __device__ constexpr int dgate_slice_stride() { return KS % 8 == 0 ? KS + 4 : KS; }
+
+template <int KS>
+__global__ void __launch_bounds__(kFwdMaxThreads, 1)
+lstm_backward_kernel(const float* __restrict__ terms, const float* __restrict__ whh,
+                     const int* __restrict__ lengths, const float* __restrict__ g,
+                     float* __restrict__ dxp, int T, int H) {
+  constexpr int SS = dgate_slice_stride<KS>();
+  __shared__ __align__(16) float dg_s[2][16 * SS];
+  const int G = 4 * H;
+  // The product: lane l of group q sums slice l of dgates into units 4q..4q+3.
+  const int l = threadIdx.x & 15, q = threadIdx.x >> 4;
+  const bool hi3 = l & 8, hi2 = l & 4;
+  // The cell: after the reduction lane 4m + s of group q holds dh of unit
+  // u = 4q + m and forms the adjoint of gate s.
+  const int u = threadIdx.x >> 2;
+  const int s = threadIdx.x & 3;
+  const bool real = u < H;
+  const int b = blockIdx.x;
+
+  float w[4][KS];  // W_hh[4q + m, l * KS + v], zero past H or 4H
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int v = 0; v < KS; ++v) {
+      const int um = 4 * q + m, j = l * KS + v;
+      w[m][v] = um < H && j < G ? whh[um * G + j] : 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < 2 * 16 * SS; i += blockDim.x) (&dg_s[0][0])[i] = 0.f;
+  const int len = max(0, min(lengths[b], T));
+  const long long row = static_cast<long long>(b) * T;
+  float* dx_row = dxp + row * G;
+  for (long long i = static_cast<long long>(len) * G + threadIdx.x;
+       i < static_cast<long long>(T) * G; i += blockDim.x)
+    dx_row[i] = 0.f;
+  // Lane s of unit u reads g_s (column s*H + u), a (4H + u) and f (5H + u),
+  // and writes dgates[s*H + u] at its slice's word.
+  const int j_out = s * H + u;
+  const int slot = j_out / KS * SS + j_out % KS;
+  const float* tm = terms + row * 6 * H + u;
+  float gr[kAhead], ar[kAhead], fr[kAhead];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    const bool ok = real && i < len;
+    const long long o = static_cast<long long>(len - 1 - i) * 6 * H;
+    gr[i] = ok ? tm[o + s * H] : 0.f;
+    ar[i] = ok ? tm[o + 4 * H] : 0.f;
+    fr[i] = ok ? tm[o + 5 * H] : 0.f;
+  }
+  float* dx_col = dx_row + j_out;
+  float dh = real ? g[b * H + u] : 0.f, dc = 0.f;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < len; k0 += kAhead) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const int t = len - 1 - (k0 + i);
+      if (t < 0) break;
+      const float dct = fmaf(dh, ar[i], dc);
+      const float d = (s == 3 ? dh : dct) * gr[i];
+      dc = dct * fr[i];
+      float* buf = dg_s[t & 1];
+      if (real) {
+        buf[slot] = d;
+        dx_col[static_cast<long long>(t) * G] = d;
+      }
+      if (real && t >= kAhead) {
+        const long long o = static_cast<long long>(t - kAhead) * 6 * H;
+        gr[i] = tm[o + s * H];
+        ar[i] = tm[o + 4 * H];
+        fr[i] = tm[o + 5 * H];
+      }
+      if (t == 0) break;
+      __syncthreads();
+      // dh_{t-1}[4q + m] = sum_j dgates_t[j] W_hh[4q + m, j]: this lane's
+      // slice for four units, then a reduce-scatter over the group's 16
+      // lanes (bits 3 and 2 of l pick the unit), then a sum over bits 1, 0.
+      const float* dq = buf + l * SS;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int v = 0; v < KS; v += 4) {
+        const float4 dv = *reinterpret_cast<const float4*>(dq + v);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          acc[m] = fmaf(dv.x, w[m][v], acc[m]);
+          acc[m] = fmaf(dv.y, w[m][v + 1], acc[m]);
+          acc[m] = fmaf(dv.z, w[m][v + 2], acc[m]);
+          acc[m] = fmaf(dv.w, w[m][v + 3], acc[m]);
+        }
+      }
+      float keep0 = hi3 ? acc[2] : acc[0], keep1 = hi3 ? acc[3] : acc[1];
+      keep0 += __shfl_xor_sync(kFull, hi3 ? acc[0] : acc[2], 8);
+      keep1 += __shfl_xor_sync(kFull, hi3 ? acc[1] : acc[3], 8);
+      float p = (hi2 ? keep1 : keep0) + __shfl_xor_sync(kFull, hi2 ? keep0 : keep1, 4);
+      p += __shfl_xor_sync(kFull, p, 1);
+      p += __shfl_xor_sync(kFull, p, 2);
+      dh = p;
+    }
   }
 }
 
@@ -322,15 +466,20 @@ __global__ void lstm_dw_reduce_kernel(const float* __restrict__ partial,
   dw[i] = s;
 }
 
-template <bool STASH, int KS>
-cudaError_t launch_forward_ks(const float* xp, const float* whh, const int* lengths,
-                              float* out, float* h_all, float* c_all, int B, int T, int H,
-                              cudaStream_t stream) {
-  const int threads = 4 * ((H + 7) / 8 * 8);
-  lstm_last_hidden_kernel<STASH, KS><<<B, threads, 0, stream>>>(xp, whh, lengths, out,
-                                                               h_all, c_all, T, H);
-  return cudaGetLastError();
+// Calls f(std::integral_constant<int, KS>) with KS = 4 * ceil(H / 16), 1 <= H <= 96.
+template <typename F>
+cudaError_t with_slice(int H, F&& f) {
+  switch ((H + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 4>{});
+    case 2: return f(std::integral_constant<int, 8>{});
+    case 3: return f(std::integral_constant<int, 12>{});
+    case 4: return f(std::integral_constant<int, 16>{});
+    case 5: return f(std::integral_constant<int, 20>{});
+    default: return f(std::integral_constant<int, 24>{});
+  }
 }
+
+int lstm_threads(int H) { return 4 * ((H + 7) / 8 * 8); }
 
 template <bool STASH>
 cudaError_t launch_forward(const void* x_proj, const void* w_hh, const void* lengths,
@@ -338,29 +487,21 @@ cudaError_t launch_forward(const void* x_proj, const void* w_hh, const void* len
                            void* stream) {
   if (B == 0) return cudaSuccess;
   if (H < 1 || H > kFwdMaxHidden) return cudaErrorInvalidValue;
-  const auto xp = static_cast<const float*>(x_proj);
-  const auto whh = static_cast<const float*>(w_hh);
-  const auto lens = static_cast<const int*>(lengths);
-  const auto o = static_cast<float*>(out);
-  const auto ha = static_cast<float*>(h_all);
-  const auto ca = static_cast<float*>(c_all);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch ((H + 15) / 16) {  // KS = 4 * ceil(H / 16)
-    case 1: return launch_forward_ks<STASH, 4>(xp, whh, lens, o, ha, ca, B, T, H, st);
-    case 2: return launch_forward_ks<STASH, 8>(xp, whh, lens, o, ha, ca, B, T, H, st);
-    case 3: return launch_forward_ks<STASH, 12>(xp, whh, lens, o, ha, ca, B, T, H, st);
-    case 4: return launch_forward_ks<STASH, 16>(xp, whh, lens, o, ha, ca, B, T, H, st);
-    case 5: return launch_forward_ks<STASH, 20>(xp, whh, lens, o, ha, ca, B, T, H, st);
-    default: return launch_forward_ks<STASH, 24>(xp, whh, lens, o, ha, ca, B, T, H, st);
-  }
+  return with_slice(H, [&](auto ks) {
+    lstm_last_hidden_kernel<STASH, decltype(ks)::value>
+        <<<B, lstm_threads(H), 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(x_proj), static_cast<const float*>(w_hh),
+            static_cast<const int*>(lengths), static_cast<float*>(out),
+            static_cast<float*>(h_all), static_cast<float*>(c_all), T, H);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-// Each entry point returns the launch's cudaError_t.  The forward takes
-// 1 <= H <= 96 (W_hh in registers: 4 * ceil(H / 16) * 4 floats a lane); the
-// backward has 4H threads per block and holds W_hh in shared memory, which the
-// 227 KB opt-in caps at H = 118.
+// Each entry point returns the launch's cudaError_t.  The forward and the
+// backward's recurrence take 1 <= H <= 96 (W_hh in registers: 4 * ceil(H / 16)
+// * 4 floats a lane); the gate terms take any H >= 1.
 
 extern "C" int maunet_lstm_last_hidden(const void* x_proj, const void* w_hh,
                                        const void* lengths, void* out, int B,
@@ -377,22 +518,36 @@ extern "C" int maunet_lstm_forward_stash(const void* x_proj, const void* w_hh,
                                                B, T, H, stream));
 }
 
-extern "C" int maunet_lstm_backward(const void* x_proj, const void* w_hh,
-                                    const void* lengths, const void* h_all,
-                                    const void* c_all, const void* g, void* dx_proj,
-                                    int B, int T, int H, void* stream) {
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(H) * (4 * H + 1) + 13 * H);
-  cudaError_t err = cudaFuncSetAttribute(lstm_backward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_backward_kernel<<<B, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+// F's first launch: terms (B, T, 6H) for t < length; the rest is not written.
+extern "C" int maunet_lstm_gate_terms(const void* x_proj, const void* w_hh,
+                                      const void* lengths, const void* h_all,
+                                      const void* c_all, void* terms, int B, int T,
+                                      int H, void* stream) {
+  if (B == 0 || T == 0) return static_cast<int>(cudaSuccess);
+  if (H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + GT_ROWS - 1) / GT_ROWS, B, (H + GT_UNITS - 1) / GT_UNITS);
+  lstm_gate_terms_kernel<<<grid, dim3(GT_UNITS, GT_TY), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x_proj), static_cast<const float*>(w_hh),
       static_cast<const int*>(lengths), static_cast<const float*>(h_all),
-      static_cast<const float*>(c_all), static_cast<const float*>(g),
-      static_cast<float*>(dx_proj), T, H);
+      static_cast<const float*>(c_all), static_cast<float*>(terms), T, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// F's second launch: dx_proj (B, T, 4H) from the terms and the last hidden
+// state's gradient g (B, H); zero at t >= length.
+extern "C" int maunet_lstm_backward(const void* terms, const void* w_hh,
+                                    const void* lengths, const void* g, void* dx_proj,
+                                    int B, int T, int H, void* stream) {
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  if (H < 1 || H > kFwdMaxHidden) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_slice(H, [&](auto ks) {
+    lstm_backward_kernel<decltype(ks)::value>
+        <<<B, lstm_threads(H), 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(terms), static_cast<const float*>(w_hh),
+            static_cast<const int*>(lengths), static_cast<const float*>(g),
+            static_cast<float*>(dx_proj), T, H);
+    return cudaGetLastError();
+  }));
 }
 
 // dW (H, 4H) from the stashed h and the backward's dx_proj.  ``partial`` is

@@ -7,8 +7,10 @@ Port of ``maunet_tpu/ops/pallas/lstm.py``: the inference forward
 (``_pallas_backward``), joined as ``lstm_last_hidden``'s custom VJP
 (lstm.py:134-163) is, and the oracle ``lstm_last_hidden_scan``.  The kernels
 are ``csrc/lstm.cu``; its header says what bounds them on the H100.  The
-TPU backward sums dW inside its body; on the card dW is a launch of its own
-(:func:`lstm_dw`).
+TPU backward recomputes the gates and sums dW inside its body; on the card
+the backward is two launches, the gate terms of every step at once
+(:func:`lstm_gate_terms`) and then the reverse recurrence, and dW is a
+launch of its own (:func:`lstm_dw`).
 """
 
 from __future__ import annotations
@@ -20,12 +22,9 @@ from torch.autograd.function import once_differentiable
 
 from maunet_tpu_torch.ops.kernels import _build
 
-# Shared memory of the 227 KB opt-in, in floats: the backward holds W_hh at a
-# padded row stride (H x (4H + 1)) and 13H more.  The forward holds W_hh in
-# registers (4 * KS floats a lane, KS = 4 * ceil(H / 16)), which caps H at 96,
-# and only h in shared memory: two buffers of four slices of KS words (KS + 4
-# where KS is a multiple of 16, so the slices fall on distinct banks).
-_SMEM_FLOATS = 232_448 // 4
+# The forward and the backward's recurrence hold W_hh in registers (4 * KS
+# floats a lane, KS = 4 * ceil(H / 16)), which caps H at 96; in shared memory
+# they keep only h, or dgates, double-buffered.
 FWD_MAX_HIDDEN = 96
 # dW's B*T rows are cut into at most this many slices, each a multiple of
 # the kernel's 32-row chunk: at H = 96 that is 36 output tiles x 8 slices,
@@ -119,6 +118,59 @@ def lstm_backward_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
     return dx, dw
 
 
+def lstm_gate_terms_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                          lengths: torch.Tensor, h_all: torch.Tensor,
+                          c_all: torch.Tensor) -> torch.Tensor:
+    """The plain version of F's first launch: everything of a step that does
+    not depend on the carried adjoints.  The gates are recomputed from the
+    stash, pre = x_proj + h_{t-1} W_hh (lstm.py:247-248), and with
+    tc = tanh(c_t) each step's coefficients are returned as (B, T, 6H) f32,
+    ``[g_i, g_f, g_g, g_o, a, f]``: g_i = g i(1-i), g_f = c_{t-1} f(1-f),
+    g_g = i(1-g^2), g_o = tc o(1-o), a = o(1-tc^2), and the forget gate f.
+    Zero at t >= length."""
+    b, t, four_h = x_proj.shape
+    dev = x_proj.device
+    zeros = torch.zeros((b, 1, four_h // 4), dtype=torch.float32, device=dev)
+    h_prev = torch.cat([zeros, h_all.float()], 1)[:, :t]
+    c_prev = torch.cat([zeros, c_all.float()], 1)[:, :t]
+    gates = x_proj.float() + h_prev @ w_hh.float()
+    i_g, f_g, g_g, o_g = gates.chunk(4, dim=-1)
+    i_g, f_g, o_g, g_g = (torch.sigmoid(i_g), torch.sigmoid(f_g), torch.sigmoid(o_g),
+                          torch.tanh(g_g))
+    tc = torch.tanh(c_all.float())
+    terms = torch.cat([g_g * i_g * (1.0 - i_g), c_prev * f_g * (1.0 - f_g),
+                       i_g * (1.0 - g_g * g_g), tc * o_g * (1.0 - o_g),
+                       o_g * (1.0 - tc * tc), f_g], -1)
+    active = torch.arange(t, device=dev)[None, :] < lengths.to(dev)[:, None]
+    return torch.where(active[..., None], terms, 0.0)
+
+
+def lstm_backward_recur_plain(terms: torch.Tensor, w_hh: torch.Tensor,
+                              lengths: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain version of F's second launch: the reverse loop that forms
+    dh, dc, the gate adjoints and dx_proj (B, T, 4H) f32 from
+    :func:`lstm_gate_terms_plain`'s terms and the last hidden state's
+    gradient ``g`` (B, H).  dct = dc + dh a, d_o = dh g_o,
+    d_{i,f,g} = dct g_{i,f,g}, dc = dct f, dh = dgates W_hh^T; steps
+    t >= length pass (dh, dc) through and have zero adjoints."""
+    b, t, six_h = terms.shape
+    dev = terms.device
+    w = w_hh.float()
+    active = torch.arange(t, device=dev)[:, None] < lengths.to(dev)[None, :]
+    dx = torch.zeros((b, t, 4 * (six_h // 6)), dtype=torch.float32, device=dev)
+    dh = g.float()
+    dc = torch.zeros_like(dh)
+    for s in range(t - 1, -1, -1):
+        gi, gf, gg, go, a, f = terms[:, s].float().chunk(6, dim=-1)
+        dct = dc + dh * a
+        m = active[s][:, None]
+        dgates = torch.where(m, torch.cat([dct * gi, dct * gf, dct * gg, dh * go], 1), 0.0)
+        dx[:, s] = dgates
+        dh = torch.where(m, dgates @ w.t(), dh)
+        dc = torch.where(m, dct * f, dc)
+    return dx
+
+
 def lstm_dw_plain(h_all: torch.Tensor, dx_proj: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
     """The plain version of the dW launch: sum over (b, t) of
@@ -132,25 +184,10 @@ def lstm_dw_plain(h_all: torch.Tensor, dx_proj: torch.Tensor,
     return torch.einsum("btk,btj->kj", h_prev, dx_proj.float())
 
 
-def _fwd_slice(hidden: int) -> int:
-    """KS: the k each of a unit's four lanes sums over, a multiple of 4."""
-    return 4 * -(-hidden // 16)
-
-
-def _fwd_smem_floats(hidden: int) -> int:
-    ks = _fwd_slice(hidden)
-    return 2 * 4 * (ks + 4 if ks % 16 == 0 else ks)
-
-
-def _bwd_smem_floats(hidden: int) -> int:
-    return hidden * (4 * hidden + 1) + 13 * hidden
-
-
-def _check_lstm_args(what: str, x_proj, w_hh, lengths, smem_floats: int,
-                     extra=(), max_hidden: int | None = None):
-    """Validation of the CUDA branch: shapes, dtypes, devices, contiguity,
-    the range of H the kernel takes (``max_hidden``) and the shared-memory
-    bound on H."""
+def _check_lstm_args(what: str, x_proj, w_hh, lengths, extra=(),
+                     max_hidden: int | None = None):
+    """Validation of the CUDA branch: shapes, dtypes, devices, contiguity
+    and the range of H the kernel takes (``max_hidden``)."""
     _build.require(x_proj.dim() == 3 and x_proj.shape[2] % 4 == 0, what,
                    f"x_proj must be (B, T, 4H), got {tuple(x_proj.shape)}")
     b, t, four_h = x_proj.shape
@@ -171,11 +208,8 @@ def _check_lstm_args(what: str, x_proj, w_hh, lengths, smem_floats: int,
         _build.require(arr.is_contiguous(), what, f"{name} must be contiguous")
     if max_hidden is not None:
         _build.require(1 <= hidden <= max_hidden, what,
-                       f"hidden size {hidden} is outside 1..{max_hidden}: the forward "
-                       f"kernel holds W_hh in registers, 4 * ceil(H / 16) * 4 floats a lane")
-    _build.require(smem_floats <= _SMEM_FLOATS, what,
-                   f"hidden size {hidden} needs {4 * smem_floats} B of shared "
-                   f"memory, over the {4 * _SMEM_FLOATS} B opt-in")
+                       f"hidden size {hidden} is outside 1..{max_hidden}: the kernel "
+                       f"holds W_hh in registers, 4 * ceil(H / 16) * 4 floats a lane")
     return b, t, hidden
 
 
@@ -188,7 +222,6 @@ def lstm_forward_stash(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if _build.on_cpu(x_proj, what):
         return lstm_forward_stash_plain(x_proj, w_hh, lengths)
     b, t, hidden = _check_lstm_args(what, x_proj, w_hh, lengths,
-                                    _fwd_smem_floats(x_proj.shape[-1] // 4),
                                     max_hidden=FWD_MAX_HIDDEN)
     dev = x_proj.device
     out = torch.empty((b, hidden), dtype=torch.float32, device=dev)
@@ -204,31 +237,76 @@ def lstm_forward_stash(x_proj: torch.Tensor, w_hh: torch.Tensor,
     return out, h_all, c_all
 
 
+def _gate_terms_launch(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                       lengths: torch.Tensor, h_all: torch.Tensor,
+                       c_all: torch.Tensor) -> torch.Tensor:
+    """F's first launch on checked CUDA tensors: the gate terms into scratch."""
+    b, t, four_h = x_proj.shape
+    hidden = four_h // 4
+    terms = torch.empty((b, t, 6 * hidden), dtype=torch.float32, device=x_proj.device)
+    fn = _build.function("maunet_lstm_gate_terms",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _build.check(fn(x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
+                    h_all.data_ptr(), c_all.data_ptr(), terms.data_ptr(), b, t,
+                    hidden, _build.stream_of(x_proj)), "lstm_gate_terms")
+    lstm_gate_terms.launches += 1
+    return terms
+
+
+def lstm_gate_terms(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                    lengths: torch.Tensor, h_all: torch.Tensor,
+                    c_all: torch.Tensor) -> torch.Tensor:
+    """F's first launch: the gate terms (B, T, 6H) f32 of
+    :func:`lstm_gate_terms_plain` for every step at once.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel, which leaves the
+    rows t >= length unwritten (the recurrence never reads them)."""
+    what = "lstm_gate_terms"
+    if _build.on_cpu(x_proj, what):
+        return lstm_gate_terms_plain(x_proj, w_hh, lengths, h_all, c_all)
+    b, t, four_h = x_proj.shape
+    hidden = four_h // 4
+    _check_lstm_args(what, x_proj, w_hh, lengths,
+                     extra=(("h_all", h_all, (b, t, hidden)),
+                            ("c_all", c_all, (b, t, hidden))))
+    return _gate_terms_launch(x_proj, w_hh, lengths, h_all, c_all)
+
+
+def _backward_recur(terms: torch.Tensor, w_hh: torch.Tensor,
+                    lengths: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """F's second launch on checked CUDA tensors: dx_proj from the terms."""
+    b, t, six_h = terms.shape
+    hidden = six_h // 6
+    dx = torch.empty((b, t, 4 * hidden), dtype=torch.float32, device=terms.device)
+    fn = _build.function("maunet_lstm_backward",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _build.check(fn(terms.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), b, t, hidden, _build.stream_of(terms)),
+                 "lstm_backward")
+    lstm_backward.launches += 1
+    return dx
+
+
 def lstm_backward(x_proj: torch.Tensor, w_hh: torch.Tensor,
                   lengths: torch.Tensor, h_all: torch.Tensor,
                   c_all: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """F: dx_proj (B, T, 4H) f32 from the forward's stash and the last hidden
     state's gradient ``g`` (B, H); zero at t >= length.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel.  dW_hh is
-    :func:`lstm_dw` of the result."""
+    the plain version; a CUDA tensor launches two kernels in turn, the gate
+    terms into scratch (counted as :func:`lstm_gate_terms`' launches), then
+    the reverse recurrence (counted here), which takes 1 <= H <= 96.  dW_hh
+    is :func:`lstm_dw` of the result."""
     what = "lstm_backward"
     if _build.on_cpu(x_proj, what):
         return lstm_backward_plain(x_proj, w_hh, lengths, h_all, c_all, g)[0]
     b, t, four_h = x_proj.shape
     hidden = four_h // 4
     _check_lstm_args(
-        what, x_proj, w_hh, lengths, _bwd_smem_floats(hidden),
+        what, x_proj, w_hh, lengths,
         extra=(("h_all", h_all, (b, t, hidden)), ("c_all", c_all, (b, t, hidden)),
-               ("g", g, (b, hidden))))
-    dx = torch.empty_like(x_proj)
-    fn = _build.function("maunet_lstm_backward",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                         + [ctypes.c_void_p])
-    _build.check(fn(x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
-                    h_all.data_ptr(), c_all.data_ptr(), g.data_ptr(),
-                    dx.data_ptr(), b, t, hidden, _build.stream_of(x_proj)), what)
-    lstm_backward.launches += 1
-    return dx
+               ("g", g, (b, hidden))),
+        max_hidden=FWD_MAX_HIDDEN)
+    return _backward_recur(_gate_terms_launch(x_proj, w_hh, lengths, h_all, c_all),
+                           w_hh, lengths, g)
 
 
 def lstm_dw(h_all: torch.Tensor, dx_proj: torch.Tensor,
@@ -273,7 +351,7 @@ def lstm_dw(h_all: torch.Tensor, dx_proj: torch.Tensor,
 class _StashedLSTM(torch.autograd.Function):
     """``lstm_last_hidden``'s custom VJP (``maunet_tpu/ops/pallas/lstm.py``
     ``_vjp_fwd``/``_vjp_bwd``): the forward runs E and keeps its stash, the
-    backward runs F and dW."""
+    backward runs F (two launches) and dW."""
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, lengths):
@@ -305,7 +383,6 @@ def lstm_last_hidden(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if _build.on_cpu(x_proj, what):
         return lstm_last_hidden_scan(x_proj, w_hh, lengths)
     b, t, hidden = _check_lstm_args(what, x_proj, w_hh, lengths,
-                                    _fwd_smem_floats(x_proj.shape[-1] // 4),
                                     max_hidden=FWD_MAX_HIDDEN)
     out = torch.empty((b, hidden), dtype=torch.float32, device=x_proj.device)
     fn = _build.function("maunet_lstm_last_hidden",
@@ -319,5 +396,6 @@ def lstm_last_hidden(x_proj: torch.Tensor, w_hh: torch.Tensor,
 
 lstm_last_hidden.launches = 0
 lstm_forward_stash.launches = 0
+lstm_gate_terms.launches = 0
 lstm_backward.launches = 0
 lstm_dw.launches = 0

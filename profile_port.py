@@ -53,14 +53,19 @@ calls back to back), with raw weights, beside cuDNN's conv with the same
 epilogue and the bound (``chip_smoke.cudnn_block``, ``conv_work``).
 
 The ``--lstm`` mode compiles ``csrc/lstm.cu`` alone with ``-Xptxas -v`` and
-prints each kernel's registers and spills; holds B (``lstm_last_hidden``)
-and E (``lstm_forward_stash``) against their plain versions at
+prints each kernel's registers and spills; holds B (``lstm_last_hidden``),
+E (``lstm_forward_stash``) and F (``lstm_backward``: the gate terms, then
+the recurrence) against their plain versions at
 ``chip_smoke.LSTM_EDGE_CASES`` (lengths 0, 1 and T in one batch, B = 1,
 H = 50, 64 and 96, T = 64 and 828); and at the serving (B = 8), evaluation
 and training (B = 16) batches of ``chip_smoke.py`` (T = 828, H = 96) prints
-B's, E's and F's device times (CUDA events around ten calls back to back)
-beside cuDNN's LSTM (``nn.LSTM`` over the raw series at full length, the
-forward alone and the forward with the backward of its last hidden state).
+B's, E's and F's device times (CUDA events around ten calls back to back;
+F as both launches through its wrapper, and each launch alone) beside
+cuDNN's LSTM (``nn.LSTM`` over the raw series at full length, the forward
+alone and the forward with the backward of its last hidden state) and
+beside the serial chain's bound: the batch's longest length times the
+H x 4H FMAs of one step on one SM's 128 f32 lanes, at the SM's maximum
+clock (``nvidia-smi``'s ``clocks.max.sm``).
 
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
@@ -99,7 +104,7 @@ TRAIN_FAMILIES = (
     ("A conv3x3_fused", ("conv3x3_fused",)),
     ("E lstm stash forward", ("lstm_last_hidden_kernel<true", "lstm_last_hidden_kernelILb1E")),
     ("B lstm_last_hidden", ("lstm_last_hidden",)),
-    ("F lstm backward", ("lstm_backward",)),
+    ("F lstm backward", ("lstm_gate_terms", "lstm_backward")),
     ("dW lstm_dw", ("lstm_dw",)),
     ("C resize_align_corners", ("resize_align_corners",)),
     ("cuDNN convs, forward and backward", ("xmma", "cudnn", "dgrad", "wgrad", "fprop", "conv")),
@@ -296,11 +301,14 @@ def conv_kernel_label(entry: str) -> str:
 
 
 def lstm_kernel_label(entry: str) -> str:
-    """``lstm_last_hidden_kernel<stash, KS>`` or the kernel's plain name,
-    from its mangled name."""
+    """``lstm_last_hidden_kernel<stash, KS>``, ``lstm_backward_kernel<KS>``
+    or the kernel's plain name, from its mangled name."""
     m = re.search(r"lstm_last_hidden_kernelILb(\d)ELi(\d+)E", entry)
     if m:
         return f"lstm_last_hidden_kernel<{'true' if m.group(1) == '1' else 'false'}, KS = {m.group(2)}>"
+    m = re.search(r"lstm_backward_kernelILi(\d+)E", entry)
+    if m:
+        return f"lstm_backward_kernel<KS = {m.group(1)}>"
     m = re.search(r"(lstm_\w+?_kernel)", entry)
     return m.group(1) if m else entry
 
@@ -314,7 +322,7 @@ def device_ms(fn, calls: int = 10) -> float:
 
 
 def lstm_checks(dev: torch.device) -> None:
-    """B and E against their plain versions at ``chip_smoke.LSTM_EDGE_CASES``."""
+    """B, E and F against their plain versions at ``chip_smoke.LSTM_EDGE_CASES``."""
     import chip_smoke as cs
 
     from maunet_tpu_torch.ops.kernels import lstm
@@ -322,26 +330,41 @@ def lstm_checks(dev: torch.device) -> None:
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     for hidden, t, lens in cs.LSTM_EDGE_CASES:
         x_proj, w_hh, lengths = cs.lstm_inputs(g, dev, hidden, t, lens)
+        grad = torch.randn((len(lens), hidden), generator=g, device=dev)
         with torch.no_grad():
             got = (lstm.lstm_last_hidden(x_proj, w_hh, lengths),
                    *lstm.lstm_forward_stash(x_proj, w_hh, lengths))
             want = (lstm.lstm_last_hidden_scan(x_proj, w_hh, lengths),
                     *lstm.lstm_forward_stash_plain(x_proj, w_hh, lengths))
+            dx = lstm.lstm_backward(x_proj, w_hh, lengths, *want[2:], grad)
+            dx_want = lstm.lstm_backward_plain(x_proj, w_hh, lengths, *want[2:], grad)[0]
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        ok = err <= 1e-4 and all(bool(torch.isfinite(a).all()) for a in got)
-        print(f"check B and E, H = {hidden}, T = {t}, lengths {lens}: max_abs_err={err:.3e} "
-              f"(tol 1e-4) {'ok' if ok else 'FAIL'}")
+        f_err = float((dx - dx_want).abs().max())
+        ok = (err <= 1e-4 and all(bool(torch.isfinite(a).all()) for a in (*got, dx))
+              and bool(((dx - dx_want).abs() <= 1e-4 + 1e-4 * dx_want.abs()).all()))
+        print(f"check B, E and F, H = {hidden}, T = {t}, lengths {lens}: max_abs_err={err:.3e} "
+              f"(tol 1e-4), F {f_err:.3e} (tol 1e-4 + 1e-4|plain|) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"lstm H = {hidden}, T = {t}, lengths {lens} disagrees")
 
 
+def sm_clock_ghz() -> float:
+    """The SM's maximum clock, from ``nvidia-smi``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) / 1e3
+
+
 def lstm_times(dev: torch.device) -> None:
-    """B, E and F at the three batches of ``chip_smoke.py``, beside cuDNN."""
+    """B, E and F at the three batches of ``chip_smoke.py``, beside cuDNN and
+    the serial chain's bound."""
     import chip_smoke as cs
 
     from maunet_tpu_torch.ops.kernels import lstm
 
     hidden = 96
+    clock = sm_clock_ghz()
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     cudnn = torch.nn.LSTM(1, hidden, batch_first=True).to(dev)
     for label, lens in (("serving", cs.SERVING_LENGTHS), ("evaluation", cs.EVAL_LENGTHS),
@@ -352,16 +375,23 @@ def lstm_times(dev: torch.device) -> None:
         grad = torch.randn((b, hidden), generator=g, device=dev)
         with torch.no_grad():
             _, h_all, c_all = lstm.lstm_forward_stash(x_proj, w_hh, lengths)
+            terms = lstm.lstm_gate_terms(x_proj, w_hh, lengths, h_all, c_all)
             b_ms = device_ms(lambda: lstm.lstm_last_hidden(x_proj, w_hh, lengths))
             e_ms = device_ms(lambda: lstm.lstm_forward_stash(x_proj, w_hh, lengths))
             f_ms = device_ms(lambda: lstm.lstm_backward(x_proj, w_hh, lengths, h_all, c_all, grad))
+            fa_ms = device_ms(lambda: lstm.lstm_gate_terms(x_proj, w_hh, lengths, h_all, c_all))
+            fb_ms = device_ms(lambda: lstm._backward_recur(terms, w_hh, lengths, grad))
             cudnn_ms = device_ms(lambda: cudnn(series))
         series_g = series.clone().requires_grad_()
         cudnn_bwd_ms = device_ms(lambda: torch.autograd.grad(
             cudnn(series_g)[1][0].sum(), series_g))
+        chain_ms = max(lens) * hidden * 4 * hidden / 128 / (clock * 1e6)
         print(f"time {label} ({b}, {cs.T_SERIES}, {4 * hidden}), {sum(lens)} steps in all: "
-              f"B {b_ms:.4f} ms, E {e_ms:.4f}, F {f_ms:.4f} on the device; cuDNN LSTM forward "
-              f"{cudnn_ms:.4f}, forward and backward {cudnn_bwd_ms:.4f}")
+              f"B {b_ms:.4f} ms, E {e_ms:.4f}, F {f_ms:.4f} (gate terms {fa_ms:.4f} + "
+              f"recurrence {fb_ms:.4f} = {fa_ms + fb_ms:.4f}) on the device; cuDNN LSTM "
+              f"forward {cudnn_ms:.4f}, forward and backward {cudnn_bwd_ms:.4f}; serial "
+              f"chain bound of B, E and F {chain_ms:.4f} ({max(lens)} steps x "
+              f"{hidden * 4 * hidden // 128} cycles at {clock:.3f} GHz)")
 
 
 def conv_profile(dev: torch.device) -> None:

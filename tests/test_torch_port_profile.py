@@ -66,6 +66,8 @@ def test_trace_breakdown_empty(profile_port):
     ("void (anonymous namespace)::lstm_last_hidden_kernel<false>(float const*, float const*)",
      "B lstm_last_hidden"),
     ("void (anonymous namespace)::lstm_backward_kernel(float const*)", "F lstm backward"),
+    ("void (anonymous namespace)::lstm_backward_kernel<24>(float const*)", "F lstm backward"),
+    ("void (anonymous namespace)::lstm_gate_terms_kernel(float const*)", "F lstm backward"),
     ("void (anonymous namespace)::lstm_dw_partial_kernel(float const*)", "dW lstm_dw"),
     ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cuDNN convs, forward and backward"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<>()",
@@ -123,6 +125,9 @@ def test_lstm_mode_needs_a_card(profile_port, capsys):
     ("'_ZN12_GLOBAL__N_123lstm_last_hidden_kernelILb0ELi16EEEvPKfS2_PKiPfS5_S5_ii'",
      "lstm_last_hidden_kernel<false, KS = 16>"),
     ("'_ZN12_GLOBAL__N_120lstm_backward_kernelEPKfS1_PKiS1_S1_S1_Pfii'", "lstm_backward_kernel"),
+    ("'_ZN12_GLOBAL__N_120lstm_backward_kernelILi24EEEvPKfS2_PKiS2_Pfii'",
+     "lstm_backward_kernel<KS = 24>"),
+    ("'_ZN12_GLOBAL__N_122lstm_gate_terms_kernelEPKfS1_PKiS1_S1_Pfii'", "lstm_gate_terms_kernel"),
 ])
 def test_lstm_kernel_label(profile_port, entry, want):
     assert profile_port.lstm_kernel_label(f"ptxas info    : Compiling entry function {entry}") == want

@@ -1,11 +1,13 @@
 """The PyTorch port's training kernels and their autograd wrappers against
 the JAX package.
 
-The LSTM's stash forward (E), backward (F) and dW reduction run here through
-their plain versions (the CPU path of every wrapper) and are compared with
-the Pallas kernels they replace, run in interpret mode, and with ``jax.vjp``
-of the scan.  The resize's backward, the max pool's tie gradient and the
-parameter order are held against the JAX package too.  f32 throughout:
+The LSTM's stash forward (E), backward (F: the plain version, and the
+composition of the plain versions of its two launches, the gate terms and
+the recurrence) and dW reduction run here through their plain versions (the
+CPU path of every wrapper) and are compared with the Pallas kernels they
+replace, run in interpret mode, and with ``jax.vjp`` of the scan.  The
+resize's backward, the max pool's tie gradient and the parameter order are
+held against the JAX package too.  f32 throughout:
 atol 1e-5 unless stated.  The CUDA kernels themselves run only on the card,
 where ``chip_smoke.py`` compares them with these plain versions.
 """
@@ -41,8 +43,10 @@ def _lstm_case(rng, b, t, hd):
     return x, w, g
 
 
-# (B, T, H, lengths): a frozen row (length 0), full rows, a one-step row.
-LSTM_CASES = [(3, 40, 8, [40, 0, 17]), (4, 64, 16, [64, 1, 33, 64])]
+# (B, T, H, lengths): a frozen row (length 0), full rows, a one-step row;
+# H = 50 does not fill the recurrence kernel's 4 * ceil(H / 16) weights a lane.
+LSTM_CASES = [(3, 40, 8, [40, 0, 17]), (4, 64, 16, [64, 1, 33, 64]),
+              (3, 24, 50, [24, 1, 0])]
 
 
 @pytest.mark.parametrize("b,t,hd,lengths", LSTM_CASES)
@@ -65,6 +69,15 @@ def test_stash_forward_and_backward_plain_match_pallas(rng, b, t, hd, lengths):
     np.testing.assert_allclose(pdx.numpy(), np.asarray(jdx), atol=1e-5)
     np.testing.assert_allclose(pdw.numpy(), np.asarray(jdw), atol=1e-5)
     assert not pdx[1, lengths[1]:].any()        # zero adjoints past the length
+    # F as the card runs it: the gate terms of every step, then the recurrence.
+    terms = lstm.lstm_gate_terms_plain(_t(x), _t(w), torch.from_numpy(lens), ph_all, pc_all)
+    assert terms.shape == (b, t, 6 * hd) and not terms[1, lengths[1]:].any()
+    np.testing.assert_array_equal(
+        lstm.lstm_gate_terms(_t(x), _t(w), torch.from_numpy(lens), ph_all, pc_all).numpy(),
+        terms.numpy())
+    rdx = lstm.lstm_backward_recur_plain(terms, _t(w), torch.from_numpy(lens), _t(g))
+    np.testing.assert_allclose(rdx.numpy(), np.asarray(jdx), atol=1e-5)
+    np.testing.assert_allclose(rdx.numpy(), pdx.numpy(), atol=1e-5)
     # The wrappers on CPU tensors: F alone, and dW from F's dx_proj.
     dx = lstm.lstm_backward(_t(x), _t(w), torch.from_numpy(lens), ph_all, pc_all, _t(g))
     np.testing.assert_array_equal(dx.numpy(), pdx.numpy())
@@ -201,7 +214,7 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     monkeypatch.setattr(_build, "function", fake_function)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     counters = (lstm.lstm_forward_stash, lstm.lstm_backward, lstm.lstm_dw,
-                lstm.lstm_last_hidden)
+                lstm.lstm_last_hidden, lstm.lstm_gate_terms)
     before = [f.launches for f in counters]
     b, t, hd = 3, 10, 8
     x, w = torch.zeros(b, t, 4 * hd), torch.zeros(hd, 4 * hd)
@@ -210,10 +223,23 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     h, h_all, c_all = lstm.lstm_forward_stash(x, w, lens)
     assert h.shape == (b, hd) and h_all.shape == c_all.shape == (b, t, hd)
     assert calls[-1][0] == "maunet_lstm_forward_stash" and calls[-1][1][6:9] == (b, t, hd)
-    dx = lstm.lstm_backward(x, w, lens, h_all, c_all, torch.zeros(b, hd))
-    assert dx.shape == x.shape and calls[-1][0] == "maunet_lstm_backward"
+    g = torch.zeros(b, hd)
+    dx = lstm.lstm_backward(x, w, lens, h_all, c_all, g)
+    # F is two launches: the gate terms into scratch, then the recurrence
+    # reading them and writing dx_proj.
+    (terms_name, terms_args), (recur_name, recur_args) = calls[-2:]
+    assert (terms_name, recur_name) == ("maunet_lstm_gate_terms", "maunet_lstm_backward")
+    assert terms_args[:5] == tuple(a.data_ptr() for a in (x, w, lens, h_all, c_all))
+    assert terms_args[6:9] == (b, t, hd)
+    assert recur_args[0] == terms_args[5]
+    assert recur_args[1:5] == (w.data_ptr(), lens.data_ptr(), g.data_ptr(), dx.data_ptr())
+    assert recur_args[5:8] == (b, t, hd) and dx.shape == x.shape
+    terms = lstm.lstm_gate_terms(x, w, lens, h_all, c_all)
+    assert terms.shape == (b, t, 6 * hd) and calls[-1][0] == "maunet_lstm_gate_terms"
     with pytest.raises(ValueError, match="g must be"):
         lstm.lstm_backward(x, w, lens, h_all, c_all, torch.zeros(b, hd + 1))
+    with pytest.raises(ValueError, match="c_all must be"):
+        lstm.lstm_gate_terms(x, w, lens, h_all, torch.zeros(b, t, hd + 1))
     dw = lstm.lstm_dw(h_all, dx, lens)
     name, args = calls[-1]
     # B*T = 30 rows: one 32-row slice.
@@ -221,8 +247,8 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     lstm.lstm_dw(torch.zeros(16, 828, 96), torch.zeros(16, 828, 384),
                  torch.zeros(16, dtype=torch.int32))
     assert calls[-1][1][8:10] == (8, 1664)    # 13,248 rows in 8 slices of 1,664
-    # The forward holds W_hh in registers: 1 <= H <= 96; the backward's
-    # shared memory caps H at 118.
+    # The forward and the backward's recurrence hold W_hh in registers:
+    # 1 <= H <= 96.
     with pytest.raises(ValueError, match="outside 1..96"):
         lstm.lstm_forward_stash(torch.zeros(1, 2, 4 * 120), torch.zeros(120, 480),
                                 torch.ones(1, dtype=torch.int32))
@@ -233,7 +259,7 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
         lstm.lstm_forward_stash(torch.zeros(1, 2, 4 * hd_ok), torch.zeros(hd_ok, 4 * hd_ok),
                                 torch.ones(1, dtype=torch.int32))
         assert calls[-1][1][6:9] == (1, 2, hd_ok)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="outside 1..96"):
         lstm.lstm_backward(torch.zeros(1, 2, 4 * 120), torch.zeros(120, 480),
                            torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, 120),
                            torch.zeros(1, 2, 120), torch.zeros(1, 120))
@@ -244,9 +270,11 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     lstm.lstm_last_hidden(xg, w, lens)
     with torch.no_grad():
         lstm.lstm_last_hidden(xg, w, lens)
-    # E: the first call, H = 50 and 96, the Function's forward.
+    # E: the first call, H = 50 and 96, the Function's forward; the gate
+    # terms: F's first launch and the direct call.
     assert [f.launches for f in counters] == [before[0] + 4, before[1] + 1,
-                                              before[2] + 2, before[3] + 1]
+                                              before[2] + 2, before[3] + 1,
+                                              before[4] + 2]
 
     bf = torch.bfloat16
     parts = [torch.zeros(1, 4, 4, 3, dtype=bf)]
@@ -256,3 +284,39 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     with torch.no_grad():
         packed_vgg.conv3x3_fused(parts, [weight], scale=torch.ones(8), bias=torch.zeros(8))
     assert calls[-1][0] == "maunet_conv3x3_fused"
+
+
+@pytest.mark.parametrize("entry, counted, checks", [
+    ("lstm_backward", ("lstm_gate_terms", "lstm_backward"), 1),
+    ("lstm_gate_terms", ("lstm_gate_terms",), 1),
+    ("_gate_terms_launch", ("lstm_gate_terms",), 0),
+    ("_backward_recur", ("lstm_backward",), 0),
+])
+def test_f_counts_each_launch_where_it_launches(monkeypatch, entry, counted, checks):
+    """Each of F's two launches raises its own counter where it launches,
+    whoever calls it (``profile_port.py`` times the recurrence alone), and a
+    wrapper validates its arguments once."""
+    names, seen = [], []
+    monkeypatch.setattr(_build, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(_build, "function",
+                        lambda name, argtypes: lambda *args: names.append(name) or 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    check = lstm._check_lstm_args
+    monkeypatch.setattr(lstm, "_check_lstm_args",
+                        lambda what, *a, **k: seen.append(what) or check(what, *a, **k))
+    b, t, hd = 2, 5, 8
+    x, w = torch.zeros(b, t, 4 * hd), torch.zeros(hd, 4 * hd)
+    lens = torch.full((b,), t, dtype=torch.int32)
+    h_all, c_all, g = torch.zeros(b, t, hd), torch.zeros(b, t, hd), torch.zeros(b, hd)
+    args = {"lstm_backward": (x, w, lens, h_all, c_all, g),
+            "lstm_gate_terms": (x, w, lens, h_all, c_all),
+            "_gate_terms_launch": (x, w, lens, h_all, c_all),
+            "_backward_recur": (torch.zeros(b, t, 6 * hd), w, lens, g)}[entry]
+    fns = {name: getattr(lstm, name) for name in ("lstm_gate_terms", "lstm_backward")}
+    before = {name: fn.launches for name, fn in fns.items()}
+    getattr(lstm, entry)(*args)
+    assert ({name: fn.launches - before[name] for name, fn in fns.items()}
+            == {name: int(name in counted) for name in fns})
+    assert names == [{"lstm_gate_terms": "maunet_lstm_gate_terms",
+                      "lstm_backward": "maunet_lstm_backward"}[n] for n in counted]
+    assert len(seen) == checks
