@@ -32,7 +32,9 @@ Phases, one output line each (or a few for the kernel table):
    B = 1, H = 50, 64 and 96, T = 64 and 828).  F is two launches, the gate
    terms of every step and then the recurrence: the first has a row of its
    own (``lstm_gate_terms``) against its plain version, compared on the
-   steps t < length that it writes;
+   steps t < length that it writes.  C runs at every shape of
+   ``RESIZE_CASES``.  Two launches of C, D and dW on the same inputs must
+   give the same bits;
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
    and ``golden_unetpp.npz`` run on the card in bf16 and are held against the
    JAX package's recorded f32 outputs;
@@ -303,6 +305,33 @@ LSTM_EDGE_CASES = [
     (64, T_SERIES, [T_SERIES])]
 
 
+# C's cases in phase 3, as (input shape, output size, dtype, on the serving
+# path): the four decoder upsamples at B=8 (the serving path), at the
+# evaluation batch (B=16; the training batch has the same shapes) and
+# U-Net++'s (base 32) four at the evaluation batch; the bottleneck's double
+# interpolation of a 250² tile at B=1 (15 -> 30, then the odd fix-up 30 ->
+# 31); U-Net++'s single odd resize (12 -> 25); one f32 case and one channel
+# count that takes the kernel's one-channel-per-thread path.
+RESIZE_CASES = (
+    ((8, 16, 16, 1024), (32, 32), torch.bfloat16, True),
+    ((8, 32, 32, 512), (64, 64), torch.bfloat16, True),
+    ((8, 64, 64, 256), (128, 128), torch.bfloat16, True),
+    ((8, 128, 128, 128), (256, 256), torch.bfloat16, True),
+    ((16, 16, 16, 1024), (32, 32), torch.bfloat16, False),
+    ((16, 32, 32, 512), (64, 64), torch.bfloat16, False),
+    ((16, 64, 64, 256), (128, 128), torch.bfloat16, False),
+    ((16, 128, 128, 128), (256, 256), torch.bfloat16, False),
+    ((16, 16, 16, 512), (32, 32), torch.bfloat16, False),    # U-Net++
+    ((16, 32, 32, 256), (64, 64), torch.bfloat16, False),
+    ((16, 64, 64, 128), (128, 128), torch.bfloat16, False),
+    ((16, 128, 128, 64), (256, 256), torch.bfloat16, False),
+    ((1, 15, 15, 1024), (30, 30), torch.bfloat16, False),
+    ((1, 30, 30, 1024), (31, 31), torch.bfloat16, False),
+    ((2, 12, 12, 64), (25, 25), torch.bfloat16, False),
+    ((2, 15, 15, 64), (30, 30), torch.float32, False),
+    ((2, 15, 15, 3), (30, 31), torch.bfloat16, False))
+
+
 def lstm_inputs(g: torch.Generator, dev, hidden: int, t: int, lens):
     """Seeded (x_proj (B, t, 4H), W_hh (H, 4H), lengths (B,) int32) on
     ``dev``, W_hh drawn as torch's LSTM initialises it."""
@@ -559,38 +588,22 @@ def check_kernels(table: KernelTable, dev) -> None:
         if not torch.equal(lstm.lstm_dw(h_all, dx, lens), lstm.lstm_dw(h_all, dx, lens)):
             raise AssertionError("lstm_dw: two launches on the same inputs differ")
 
-    # C: the four decoder upsamples at B=8, and at the training and
-    # evaluation batch (B=16); U-Net++'s (base 32) four at the evaluation
-    # batch; the bottleneck's double interpolation of a 250² tile at B=1
-    # (15 -> 30, then the odd fix-up 30 -> 31); U-Net++'s single odd resize
-    # (12 -> 25); one f32 case and one channel count that takes the kernel's
-    # one-channel-per-thread path.
-    for shape, out_hw, dtype, tol, on_path in [
-            ((8, 16, 16, 1024), (32, 32), bf, 1e-2, True),
-            ((8, 32, 32, 512), (64, 64), bf, 1e-2, True),
-            ((8, 64, 64, 256), (128, 128), bf, 1e-2, True),
-            ((8, 128, 128, 128), (256, 256), bf, 1e-2, True),
-            ((16, 16, 16, 1024), (32, 32), bf, 1e-2, False),
-            ((16, 32, 32, 512), (64, 64), bf, 1e-2, False),
-            ((16, 64, 64, 256), (128, 128), bf, 1e-2, False),
-            ((16, 128, 128, 128), (256, 256), bf, 1e-2, False),
-            ((16, 16, 16, 512), (32, 32), bf, 1e-2, False),    # U-Net++
-            ((16, 32, 32, 256), (64, 64), bf, 1e-2, False),
-            ((16, 64, 64, 128), (128, 128), bf, 1e-2, False),
-            ((16, 128, 128, 64), (256, 256), bf, 1e-2, False),
-            ((1, 15, 15, 1024), (30, 30), bf, 1e-2, False),
-            ((1, 30, 30, 1024), (31, 31), bf, 1e-2, False),
-            ((2, 12, 12, 64), (25, 25), bf, 1e-2, False),
-            ((2, 15, 15, 64), (30, 30), torch.float32, 1e-5, False),
-            ((2, 15, 15, 3), (30, 31), bf, 1e-2, False)]:
+    # C at every shape of RESIZE_CASES; two launches on the same input must
+    # give the same bits.
+    for shape, out_hw, dtype, on_path in RESIZE_CASES:
         x = randn(*shape, dtype=dtype)
+        tol = 1e-2 if dtype == bf else 1e-5
         n_out = shape[0] * out_hw[0] * out_hw[1] * shape[3]
-        table.check("resize_pack", f"{shape}->{out_hw} {str(dtype).split('.')[-1]}",
+        label = f"{shape}->{out_hw} {str(dtype).split('.')[-1]}"
+        table.check("resize_pack", label,
                     lambda: resize_pack.resize_pack(x, out_hw),
                     lambda: resize_pack.resize_pack_plain(x, out_hw), tol, tol, on_path,
                     ((x.numel() + n_out) * x.element_size(), 8 * n_out, "f32"),
                     lambda: F.interpolate(x.permute(0, 3, 1, 2), size=out_hw,
                                           mode="bilinear", align_corners=True))
+        if not torch.equal(resize_pack.resize_pack(x, out_hw),
+                           resize_pack.resize_pack(x, out_hw)):
+            raise AssertionError(f"resize_pack {label}: two launches on the same input differ")
 
 
 def check_golden(dev) -> None:

@@ -9,7 +9,7 @@
 //   * _pallas_backward (body `_make_bwd_kernel`) -> lstm_gate_terms_kernel (the
 //     gate recompute, lstm.py:247-248, for every step at once), then
 //     lstm_backward_kernel<KS> (the reverse recurrence), plus
-//     lstm_dw_partial_kernel and lstm_dw_reduce_kernel for its dW sum.
+//     lstm_dw_partial_kernel<VEC_H> and lstm_dw_reduce_kernel for its dW sum.
 // x_proj (B, T, 4H) f32 already holds x.W_ih + b_ih + b_hh; W_hh is (H, 4H)
 // f32; lengths (B,) i32.  Gate order (i, f, g, o); each sample's (h, c)
 // freezes at t >= length.
@@ -97,15 +97,25 @@
 //
 // dW: the TPU kernel accumulates dW += h_{t-1}^T . dgates in its body, which
 // works because its grid runs in order on one core.  Blocks on the card run
-// in no order and cannot share a sum, so dW is a launch of its own: a tiled
-// (H x B*T) . (B*T x 4H) product, split over the B*T rows into a fixed number
-// of slices (enough blocks for the 132 SMs), each slice writing its own
-// partial tile, and a reduce that adds the slices in order.  No atomics: a
-// repeated run gives the same bits.  At B = 16, T = 828, H = 96 it is 0.98
-// GFLOP and takes 0.15-0.21 ms, about 5 TFLOP/s: a plain smem-tiled product,
-// far from the FP32 pipes' peak.  All sums are in full f32, as the TPU
-// kernels and the plain versions compute them.
+// in no order and cannot share a sum, so dW is a launch of its own: the
+// (H x B*T) . (B*T x 4H) product, 0.98 GFLOP at B = 16, T = 828, H = 96, in
+// full f32 (the plain versions and the TPU kernel are f32, so no TF32).
+// What bounds it on the H100 is FMA issue: 0.0084 ms at the f32 peak for the
+// rows the training lengths need.  The first kernel, 32 x 32 tiles over 8
+// row slices (288 blocks), 5 shared loads per 4 FMAs and every row walked,
+// took 0.137 ms on the device (NVIDIA H100 80GB HBM3, 700 W), slower than
+// the plain einsum.  lstm_dw_partial_kernel is now a split-K,
+// register-tiled SIMT product: a block computes a 96-unit x 128-column tile
+// (4H in three) over one slice of the rows, a thread 6 x 8 outputs in
+// registers, so each float read from shared memory feeds 6 or 8 FMAs; the
+// slices are many (ops/kernels/lstm.py `_dw_plan`: about two blocks a SM);
+// rows stage through a cp.async double buffer, 16 rows a stage; and a stage
+// whose rows all lie at t = 0 or t >= length, which add exact zeros, is
+// skipped (at the training lengths 42% of the rows), from the lengths read
+// on the device.  lstm_dw_reduce_kernel adds the slices' partial tiles in
+// slice order.  No atomics: a repeated run gives the same bits.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -403,66 +413,155 @@ lstm_backward_kernel(const float* __restrict__ terms, const float* __restrict__ 
   }
 }
 
-constexpr int DW_TILE = 32;  // output tile (units x gate columns) and row chunk
-constexpr int DW_ROWS = 8;   // blockDim.y; each thread owns DW_TILE / DW_ROWS outputs
+constexpr int DW_UNITS = 96;     // block tile: units (rows of dW)
+constexpr int DW_COLS = 128;     // block tile: gate columns
+constexpr int DW_CHUNK = 16;     // rows of h and dx per shared-memory stage
+constexpr int DW_THREADS = 256;  // 16 x 16: 6 units x 8 gate columns a thread
 
-// partial[s, k, j] = sum over rows n of slice s of h_prev[n, k] * dx[n, j],
-// n = b * T + t, with h_prev[n] = h_all[b, t - 1] for 1 <= t < length[b] and
-// 0 elsewhere (dx is 0 for t >= length, and h_{-1} = 0).
-__global__ void lstm_dw_partial_kernel(const float* __restrict__ h_all,
-                                       const float* __restrict__ dxp,
-                                       const int* __restrict__ lengths,
-                                       float* __restrict__ partial, int B,
-                                       int T, int H, int rows_per_slice) {
-  __shared__ float a_s[DW_TILE][DW_TILE];  // [row][unit]
-  __shared__ float b_s[DW_TILE][DW_TILE];  // [row][gate column]
-  const int G = 4 * H;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int k0 = blockIdx.y * DW_TILE, j0 = blockIdx.x * DW_TILE;
-  const long long n_total = static_cast<long long>(B) * T;
-  const long long n_begin = static_cast<long long>(blockIdx.z) * rows_per_slice;
-  const long long n_end = min(n_begin + rows_per_slice, n_total);
-  constexpr int PER = DW_TILE / DW_ROWS;
-  float acc[PER] = {};
+__device__ __forceinline__ void dw_cp_async16(float* smem, const float* src, bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
 
-  for (long long n0 = n_begin; n0 < n_end; n0 += DW_TILE) {
-#pragma unroll
-    for (int rr = 0; rr < PER; ++rr) {
-      const int r = ty + rr * DW_ROWS;
-      const long long n = n0 + r;
-      float a = 0.f, v = 0.f;
-      if (n < n_end) {
-        const int bi = static_cast<int>(n / T);
-        const int t = static_cast<int>(n - static_cast<long long>(bi) * T);
-        if (k0 + tx < H && t >= 1 && t < lengths[bi]) a = h_all[(n - 1) * H + k0 + tx];
-        if (j0 + tx < G) v = dxp[n * G + j0 + tx];
-      }
-      a_s[r][tx] = a;
-      b_s[r][tx] = v;
+__device__ __forceinline__ void dw_cp_async4(float* smem, const float* src, bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void dw_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void dw_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// Row n = b * T + t of dW's product carries h_prev[n] = h_all[n - 1] for
+// 1 <= t < length[b], and zero elsewhere.
+__device__ __forceinline__ bool dw_row_active(int n, int T, const int* lengths) {
+  const int b = n / T, t = n - b * T;
+  return t >= 1 && t < lengths[b];
+}
+
+// The first chunk in [c, c_end) with an active row, or c_end.  Every thread
+// evaluates the same chunks, so the result is uniform across the block.
+__device__ __forceinline__ int dw_next_active(int c, int c_end, int n_total, int T,
+                                              const int* lengths) {
+  for (; c < c_end; ++c) {
+    const int n_end = min((c + 1) * DW_CHUNK, n_total);
+    for (int n = c * DW_CHUNK; n < n_end;) {
+      const int b = n / T, base = b * T;
+      if (max(n, base + 1) < min(n_end, base + min(lengths[b], T))) return c;
+      n = base + T;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < DW_TILE; ++r) {
-      const float v = b_s[r][tx];
-#pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] = fmaf(a_s[r][ty * PER + i], v, acc[i]);
-    }
-    __syncthreads();
   }
-  float* out = partial + static_cast<long long>(blockIdx.z) * H * G;
+  return c_end;
+}
+
+// partial[s, k, j] = sum over the rows n of slice s of h_prev[n, k] dx[n, j].
+// A block computes a 96-unit x 128-column tile over its slice's chunks of 16
+// rows; a thread keeps 6 units x 8 columns in registers (each h float read
+// from shared memory feeds 8 FMAs, each dx float 6).  Chunks are staged by
+// cp.async into a double buffer (zero-filled where h_prev is zero, past
+// B*T and outside the tile), and a chunk with no active row is skipped.
+// VEC_H: h_all's rows are 16-byte aligned (H % 4 == 0), so they are staged
+// as float4s; else one float at a time.
+template <bool VEC_H>
+__global__ void __launch_bounds__(DW_THREADS, 2)
+lstm_dw_partial_kernel(const float* __restrict__ h_all, const float* __restrict__ dxp,
+                       const int* __restrict__ lengths, float* __restrict__ partial,
+                       int B, int T, int H, int chunks_per_slice) {
+  __shared__ __align__(16) float h_s[2][DW_CHUNK][DW_UNITS];
+  __shared__ __align__(16) float d_s[2][DW_CHUNK][DW_COLS];
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  const int tc = tid % 16, tu = tid / 16;
+  const int j0 = blockIdx.x * DW_COLS, k0 = blockIdx.y * DW_UNITS;
+  const int n_total = B * T;
+  const int n_chunks = (n_total + DW_CHUNK - 1) / DW_CHUNK;
+  const int c_begin = blockIdx.z * chunks_per_slice;
+  const int c_end = min(c_begin + chunks_per_slice, n_chunks);
+
+  auto stage = [&](int c, int buf) {
+    const int n0 = c * DW_CHUNK;
+    for (int i = tid; i < DW_CHUNK * DW_COLS / 4; i += DW_THREADS) {
+      const int r = i / (DW_COLS / 4), j = j0 + (i % (DW_COLS / 4)) * 4;
+      const int n = n0 + r;
+      const bool ok = n < n_total && j < G;
+      dw_cp_async16(&d_s[buf][r][j - j0], ok ? dxp + static_cast<size_t>(n) * G + j : dxp, ok);
+    }
+    if (VEC_H) {
+      for (int i = tid; i < DW_CHUNK * DW_UNITS / 4; i += DW_THREADS) {
+        const int r = i / (DW_UNITS / 4), k = k0 + (i % (DW_UNITS / 4)) * 4;
+        const int n = n0 + r;
+        const bool ok = n < n_total && k < H && dw_row_active(n, T, lengths);
+        dw_cp_async16(&h_s[buf][r][k - k0],
+                      ok ? h_all + static_cast<size_t>(n - 1) * H + k : h_all, ok);
+      }
+    } else {
+      for (int i = tid; i < DW_CHUNK * DW_UNITS; i += DW_THREADS) {
+        const int r = i / DW_UNITS, k = k0 + i % DW_UNITS;
+        const int n = n0 + r;
+        const bool ok = n < n_total && k < H && dw_row_active(n, T, lengths);
+        dw_cp_async4(&h_s[buf][r][k - k0],
+                     ok ? h_all + static_cast<size_t>(n - 1) * H + k : h_all, ok);
+      }
+    }
+  };
+
+  float acc[6][8] = {};
+  int c = dw_next_active(c_begin, c_end, n_total, T, lengths);
+  if (c < c_end) stage(c, 0);
+  dw_commit();
+  int buf = 0;
+  while (c < c_end) {
+    const int next = dw_next_active(c + 1, c_end, n_total, T, lengths);
+    if (next < c_end) stage(next, buf ^ 1);
+    dw_commit();
+    dw_wait_one();
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int kk = k0 + ty * PER + i, jj = j0 + tx;
-    if (kk < H && jj < G) out[kk * G + jj] = acc[i];
+    for (int r = 0; r < DW_CHUNK; ++r) {
+      const float2 a01 = *reinterpret_cast<const float2*>(&h_s[buf][r][tu * 6]);
+      const float2 a23 = *reinterpret_cast<const float2*>(&h_s[buf][r][tu * 6 + 2]);
+      const float2 a45 = *reinterpret_cast<const float2*>(&h_s[buf][r][tu * 6 + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&d_s[buf][r][tc * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&d_s[buf][r][64 + tc * 4]);
+      const float a[6] = {a01.x, a01.y, a23.x, a23.y, a45.x, a45.y};
+      const float v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int u = 0; u < 6; ++u)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[u][q] = fmaf(a[u], v[q], acc[u][q]);
+    }
+    __syncthreads();
+    buf ^= 1;
+    c = next;
+  }
+
+  float* out = partial + static_cast<size_t>(blockIdx.z) * H * G;
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+    const int k = k0 + tu * 6 + u;
+    if (k >= H) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = j0 + half * 64 + tc * 4;
+      if (j < G)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(k) * G + j) =
+            make_float4(acc[u][4 * half], acc[u][4 * half + 1], acc[u][4 * half + 2],
+                        acc[u][4 * half + 3]);
+    }
   }
 }
 
+// dw[i] = the slices' partials added in slice order, one float a thread,
+// eight loads in flight.
 __global__ void lstm_dw_reduce_kernel(const float* __restrict__ partial,
                                       float* __restrict__ dw, int n, int slices) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
-  for (int z = 0; z < slices; ++z) s += partial[static_cast<long long>(z) * n + i];
+#pragma unroll 8
+  for (int z = 0; z < slices; ++z) s += partial[static_cast<size_t>(z) * n + i];
   dw[i] = s;
 }
 
@@ -552,18 +651,33 @@ extern "C" int maunet_lstm_backward(const void* terms, const void* w_hh,
 
 // dW (H, 4H) from the stashed h and the backward's dx_proj.  ``partial`` is
 // scratch of (slices, H, 4H) floats; each slice covers rows_per_slice of the
-// B*T rows (a multiple of 32).
+// B*T rows (a multiple of 16), and slices * rows_per_slice >= B*T.
 extern "C" int maunet_lstm_dw(const void* h_all, const void* dx_proj,
                               const void* lengths, void* partial, void* dw, int B,
                               int T, int H, int slices, int rows_per_slice,
                               void* stream) {
+  if (H < 1 || T < 1 || B < 1 || slices < 1 || rows_per_slice < DW_CHUNK ||
+      rows_per_slice % DW_CHUNK != 0 ||
+      static_cast<long long>(slices) * rows_per_slice < static_cast<long long>(B) * T ||
+      static_cast<long long>(B) * T * 4 * H >= (1LL << 31) || slices > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int G = 4 * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((G + DW_TILE - 1) / DW_TILE, (H + DW_TILE - 1) / DW_TILE, slices);
-  lstm_dw_partial_kernel<<<grid, dim3(DW_TILE, DW_ROWS), 0, s>>>(
-      static_cast<const float*>(h_all), static_cast<const float*>(dx_proj),
-      static_cast<const int*>(lengths), static_cast<float*>(partial), B, T, H,
-      rows_per_slice);
+  const dim3 grid((G + DW_COLS - 1) / DW_COLS, (H + DW_UNITS - 1) / DW_UNITS, slices);
+  const int chunks = rows_per_slice / DW_CHUNK;
+  const bool vec_h = H % 4 == 0 && reinterpret_cast<uintptr_t>(h_all) % 16 == 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(dx_proj) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(partial) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dw) % 16 == 0;
+  if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
+  const float* h = static_cast<const float*>(h_all);
+  const float* dx = static_cast<const float*>(dx_proj);
+  const int* len = static_cast<const int*>(lengths);
+  float* part = static_cast<float*>(partial);
+  if (vec_h)
+    lstm_dw_partial_kernel<true><<<grid, DW_THREADS, 0, s>>>(h, dx, len, part, B, T, H, chunks);
+  else
+    lstm_dw_partial_kernel<false><<<grid, DW_THREADS, 0, s>>>(h, dx, len, part, B, T, H, chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = H * G;

@@ -26,11 +26,27 @@ from maunet_tpu_torch.ops.kernels import _build
 # floats a lane, KS = 4 * ceil(H / 16)), which caps H at 96; in shared memory
 # they keep only h, or dgates, double-buffered.
 FWD_MAX_HIDDEN = 96
-# dW's B*T rows are cut into at most this many slices, each a multiple of
-# the kernel's 32-row chunk: at H = 96 that is 36 output tiles x 8 slices,
-# 288 blocks for the 132 SMs.
-_DW_SLICES = 8
-_DW_CHUNK = 32
+# dW's kernel: a block computes a 96-unit x 128-column tile of dW over one
+# slice of the B*T rows, staged 16 rows (a chunk) at a time; two blocks fit
+# on a SM, of which the H100 has 132.
+_DW_UNITS = 96
+_DW_COLS = 128
+_DW_CHUNK = 16
+_DW_BLOCKS_PER_SM = 2
+
+
+def _dw_plan(b: int, t: int, hidden: int) -> dict[str, int]:
+    """dW's launch plan: the B*T rows cut into ``slices`` of
+    ``rows_per_slice`` (whole chunks), enough that the ``col_tiles`` x
+    ``unit_tiles`` x ``slices`` blocks give at least two per SM, and no
+    more, since each slice writes a partial tile that the reduce reads."""
+    col_tiles = -(-4 * hidden // _DW_COLS)
+    unit_tiles = -(-hidden // _DW_UNITS)
+    chunks = max(1, -(-b * t // _DW_CHUNK))
+    min_slices = -(-_DW_BLOCKS_PER_SM * 132 // (col_tiles * unit_tiles))
+    per_slice = max(1, chunks // min_slices)
+    return {"slices": -(-chunks // per_slice), "rows_per_slice": per_slice * _DW_CHUNK,
+            "col_tiles": col_tiles, "unit_tiles": unit_tiles}
 
 
 def lstm_last_hidden_scan(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -313,8 +329,9 @@ def lstm_dw(h_all: torch.Tensor, dx_proj: torch.Tensor,
             lengths: torch.Tensor) -> torch.Tensor:
     """dW_hh (H, 4H) f32 = sum over (b, t) of h_{t-1}^T dx_proj[b, t], the
     reduction the TPU backward keeps in its body.  A CPU tensor takes the
-    plain version; a CUDA tensor launches the split-row product and its
-    in-order reduce (no atomics: repeated runs give the same bits)."""
+    plain version; a CUDA tensor launches the split-row product
+    (:func:`_dw_plan`) and its in-order reduce (no atomics: repeated runs
+    give the same bits)."""
     what = "lstm_dw"
     if _build.on_cpu(dx_proj, what):
         return lstm_dw_plain(h_all, dx_proj, lengths)
@@ -330,20 +347,17 @@ def lstm_dw(h_all: torch.Tensor, dx_proj: torch.Tensor,
         _build.require(arr.device == dx_proj.device and arr.dtype == dtype, what,
                        f"{name} must be {dtype} on {dx_proj.device}")
         _build.require(arr.is_contiguous(), what, f"{name} must be contiguous")
-    rows = b * t
-    chunks = max(1, -(-rows // _DW_CHUNK))
-    slices = min(_DW_SLICES, chunks)
-    rows_per_slice = -(-chunks // slices) * _DW_CHUNK
-    slices = max(1, -(-rows // rows_per_slice))
-    partial = torch.empty((slices, hidden, four_h), dtype=torch.float32,
+    _build.require(b * t * four_h < 1 << 31, what, "2^31 or more elements in dx_proj")
+    plan = _dw_plan(b, t, hidden)
+    partial = torch.empty((plan["slices"], hidden, four_h), dtype=torch.float32,
                           device=dx_proj.device)
     dw = torch.empty((hidden, four_h), dtype=torch.float32, device=dx_proj.device)
     fn = _build.function("maunet_lstm_dw",
                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                          + [ctypes.c_void_p])
     _build.check(fn(h_all.data_ptr(), dx_proj.data_ptr(), lengths.data_ptr(),
-                    partial.data_ptr(), dw.data_ptr(), b, t, hidden, slices,
-                    rows_per_slice, _build.stream_of(dx_proj)), what)
+                    partial.data_ptr(), dw.data_ptr(), b, t, hidden, plan["slices"],
+                    plan["rows_per_slice"], _build.stream_of(dx_proj)), what)
     lstm_dw.launches += 1
     return dw
 

@@ -22,6 +22,24 @@ from torch.autograd.function import once_differentiable
 from maunet_tpu_torch.ops.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel walks a strip of output rows per thread (``_strip_rows``): the
+# tallest of these that still leaves ``_MIN_THREADS`` threads, two
+# 256-thread blocks a SM on the H100's 132 SMs.  Taller strips reuse each
+# source row over more output rows, but on the card 8 rows beat 16 and 32 at
+# the 128² and 256² upsamples (fewer, longer threads leave the last wave
+# part-empty), and every path shape gets 8.
+_STRIP_ROWS = (8, 4, 2, 1)
+_MIN_THREADS = 132 * 2 * 256
+
+
+def _strip_rows(b: int, oh: int, ow: int, groups: int) -> int:
+    """Output rows per thread of the kernel for a (b, oh, ow) output of
+    ``groups`` 16-byte channel groups per pixel."""
+    columns = b * ow * groups
+    for rows in _STRIP_ROWS:
+        if columns * -(-oh // rows) >= _MIN_THREADS:
+            return rows
+    return 1
 
 
 def resize_pack_plain(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -85,12 +103,28 @@ def _resize_pack(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     _build.require(1 <= min(h, w, oh, ow) and max(h, w, oh, ow) < 1 << 16, what,
                    f"sides must lie in [1, 65535]: {(h, w)}->{(oh, ow)}")
     _build.require(b * oh * ow * c < 1 << 31, what, "2^31 or more output elements")
+    return _launch(x, (oh, ow), _rows_for(x, (oh, ow)))
+
+
+def _rows_for(x: torch.Tensor, out_hw: tuple[int, int]) -> int:
+    """``_strip_rows`` for resizing ``x`` to ``out_hw``: the kernel takes 16
+    bytes of channels a thread where C allows, else one channel."""
+    b, _, _, c = x.shape
+    vec = 16 // x.element_size()
+    return _strip_rows(b, *out_hw, c // vec if c % vec == 0 else c)
+
+
+def _launch(x: torch.Tensor, out_hw: tuple[int, int], rows: int) -> torch.Tensor:
+    """Launch the kernel on a checked CUDA input with ``rows`` output rows per
+    thread, and count the launch."""
+    b, h, w, c = x.shape
+    oh, ow = out_hw
     y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
     fn = _build.function("maunet_resize_align_corners",
-                         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
+                         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8
                          + [ctypes.c_void_p])
-    _build.check(fn(x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c,
-                    oh, ow, _build.stream_of(x)), what)
+    _build.check(fn(x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow,
+                    rows, _build.stream_of(x)), "resize_pack")
     resize_pack.launches += 1
     return y
 

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port on one CUDA card: the U-Net's serving forward,
 with ``--train`` one train step, with ``--eval`` one evaluation batch of
-each model family, with ``--conv`` the fused 3x3 conv kernel alone, or with
-``--lstm`` the LSTM kernels alone.
+each model family, with ``--conv`` the fused 3x3 conv kernel alone, with
+``--lstm`` the LSTM kernels alone, or with ``--resize`` the resize kernel alone.
 
     python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
     python3 profile_port.py --eval [--trace PATH]    # default build/port_eval_trace.json
     python3 profile_port.py --conv                   # no trace
     python3 profile_port.py --lstm                   # no trace
+    python3 profile_port.py --resize [--parent PATH] # no trace; PATH: another resize_pack.cu
 
 The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
 (seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
@@ -53,19 +54,44 @@ calls back to back), with raw weights, beside cuDNN's conv with the same
 epilogue and the bound (``chip_smoke.cudnn_block``, ``conv_work``).
 
 The ``--lstm`` mode compiles ``csrc/lstm.cu`` alone with ``-Xptxas -v`` and
-prints each kernel's registers and spills; holds B (``lstm_last_hidden``),
-E (``lstm_forward_stash``) and F (``lstm_backward``: the gate terms, then
-the recurrence) against their plain versions at
-``chip_smoke.LSTM_EDGE_CASES`` (lengths 0, 1 and T in one batch, B = 1,
-H = 50, 64 and 96, T = 64 and 828); and at the serving (B = 8), evaluation
-and training (B = 16) batches of ``chip_smoke.py`` (T = 828, H = 96) prints
-B's, E's and F's device times (CUDA events around ten calls back to back;
-F as both launches through its wrapper, and each launch alone) beside
-cuDNN's LSTM (``nn.LSTM`` over the raw series at full length, the forward
-alone and the forward with the backward of its last hidden state) and
-beside the serial chain's bound: the batch's longest length times the
-H x 4H FMAs of one step on one SM's 128 f32 lanes, at the SM's maximum
-clock (``nvidia-smi``'s ``clocks.max.sm``).
+prints each kernel's registers and spills; holds B (``lstm_last_hidden``), E
+(``lstm_forward_stash``) and F (``lstm_backward``: the gate terms, then the
+recurrence) against their plain versions at ``chip_smoke.LSTM_EDGE_CASES``
+(lengths 0, 1 and T in one batch, B = 1, H = 50, 64 and 96, T = 64 and 828);
+and at the serving (B = 8), evaluation and training (B = 16) batches of
+``chip_smoke.py`` (T = 828, H = 96) prints B's, E's and F's device times
+(CUDA events around ten calls back to back; F as both launches through its
+wrapper, and each launch alone) beside cuDNN's LSTM (``nn.LSTM`` over the
+raw series at full length, the forward alone and the forward with the
+backward of its last hidden state) and beside the serial chain's bound: the
+batch's longest length times the H x 4H FMAs of one step on one SM's 128 f32
+lanes, at the SM's maximum clock (``nvidia-smi``'s ``clocks.max.sm``).  At
+the training batch and at B = 1 it also prints dW's device time
+(``lstm_dw``: the split-row product and its reduce; as CUDA events around
+ten calls and as the summed kernel durations of a profiler trace) beside its
+plain version and the bare cuBLAS product of the pre-masked ``h_prev^T`` and
+``dx_proj`` (f32, TF32 off).
+
+The ``--resize`` mode compiles ``csrc/resize_pack.cu`` alone with ``-Xptxas
+-v`` and prints each instantiation's registers and spills; then at each of
+the twelve path shapes of ``chip_smoke.RESIZE_CASES`` (the serving batch's
+four upsamples, the U-Net's and U-Net++'s four at the evaluation batch)
+prints the kernel's device time, both as CUDA events around ten calls back
+to back and as the summed kernel durations of a profiler trace (at the small
+shapes the events read the host's enqueue of the wrapper), beside its bytes
+bound, ``F.interpolate(bilinear, align_corners=True)`` on the same data, a
+write-only floor (``fill_(0)`` of an output-sized tensor) and a
+read-plus-write floor (``copy_`` of an output-sized tensor), and the sums
+over each path's four; and the kernel's time at each strip height of
+``STRIP_SWEEP`` (output rows a thread), which must give the same bits.  With
+``--parent PATH`` it also compiles PATH, another version of
+``resize_pack.cu``, into a library of its own (ctypes loads it with
+``RTLD_LOCAL``, so its entry point does not clash with the tree's), calls
+its ``maunet_resize_align_corners`` with the arguments its signature names,
+requires the same bits as the tree's kernel at all seventeen shapes of
+``RESIZE_CASES``, and times the two in turns (parent, tree, tree, parent).
+To compare with the last commit, write its file first: ``git show
+HEAD:maunet_tpu_torch/csrc/resize_pack.cu > build/resize_pack_parent.cu``.
 
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
@@ -358,7 +384,7 @@ def sm_clock_ghz() -> float:
 
 def lstm_times(dev: torch.device) -> None:
     """B, E and F at the three batches of ``chip_smoke.py``, beside cuDNN and
-    the serial chain's bound."""
+    the serial chain's bound; dW at the training batch and at B = 1."""
     import chip_smoke as cs
 
     from maunet_tpu_torch.ops.kernels import lstm
@@ -392,6 +418,240 @@ def lstm_times(dev: torch.device) -> None:
               f"forward {cudnn_ms:.4f}, forward and backward {cudnn_bwd_ms:.4f}; serial "
               f"chain bound of B, E and F {chain_ms:.4f} ({max(lens)} steps x "
               f"{hidden * 4 * hidden // 128} cycles at {clock:.3f} GHz)")
+        if label == "training":
+            dw_times(b, hidden, lens, lengths, h_all,
+                     lstm.lstm_backward(x_proj, w_hh, lengths, h_all, c_all, grad))
+    # dW also at B = 1, where the slices hold few rows each.
+    x_proj, w_hh, lengths = cs.lstm_inputs(g, dev, hidden, cs.T_SERIES, [cs.T_SERIES])
+    with torch.no_grad():
+        _, h_all, c_all = lstm.lstm_forward_stash(x_proj, w_hh, lengths)
+        dx = lstm.lstm_backward(x_proj, w_hh, lengths, h_all, c_all,
+                                torch.randn((1, hidden), generator=g, device=dev))
+    dw_times(1, hidden, [cs.T_SERIES], lengths, h_all, dx)
+
+
+def dw_times(b: int, hidden: int, lens, lengths, h_all, dx) -> None:
+    """dW's device time beside its plain version, the bare cuBLAS product of
+    the pre-masked operands, and its bound by operations."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import lstm
+
+    rows = b * cs.T_SERIES
+    steps = torch.arange(cs.T_SERIES, device=dx.device)[None, :]
+    active = (steps >= 1) & (steps < lengths[:, None])
+    h_prev = torch.cat([torch.zeros_like(h_all[:, :1]), h_all[:, :-1]], 1)
+    h_prev = torch.where(active[..., None], h_prev, 0.0).reshape(rows, hidden)
+    dx2 = dx.reshape(rows, 4 * hidden)
+    calls = {"lstm_dw": lambda: lstm.lstm_dw(h_all, dx, lengths),
+             "plain": lambda: lstm.lstm_dw_plain(h_all, dx, lengths),
+             "cuBLAS f32 matmul of the pre-masked operands": lambda: torch.matmul(h_prev.t(), dx2)}
+    with torch.no_grad():
+        times = {k: (device_ms(fn), kernel_ms(fn)) for k, fn in calls.items()}
+    flops = 2 * sum(lens) * hidden * 4 * hidden
+    dw_trace = times["lstm_dw"][1]
+    print(f"time dW ({b}, {cs.T_SERIES}, {hidden} x {4 * hidden}), {sum(lens)} steps: "
+          + ", ".join(f"{k} {t:.4f}" for k, (_, t) in times.items())
+          + f" ms of kernel time (trace; lstm_dw {flops / dw_trace / 1e9:.1f} TFLOP/s on the "
+          f"steps t < length); events around ten calls: "
+          + ", ".join(f"{k} {e:.4f}" for k, (e, _) in times.items())
+          + f"; bound {flops / cs.PEAK_FLOPS['f32'] * 1e3:.4f} (operations)")
+
+
+def resize_kernel_label(entry: str) -> str:
+    """``resize_align_corners_kernel<T, V>`` from its mangled name."""
+    m = re.search(r"resize_align_corners_kernelI(13__nv_bfloat16|f)Li(\d+)E", entry)
+    if not m:
+        return entry
+    return (f"resize_align_corners_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, "
+            f"V = {m.group(2)}>")
+
+
+def resize_entry_params(source: str) -> list[tuple[str, bool]]:
+    """The parameters of ``maunet_resize_align_corners`` in a
+    ``resize_pack.cu`` source, in order, as (name, is a pointer)."""
+    m = re.search(r'extern "C" int maunet_resize_align_corners\(([^)]*)\)', source)
+    if not m:
+        raise ValueError("no maunet_resize_align_corners entry point in the source")
+    return [(re.split(r"[\s*]+", p.strip())[-1], "*" in p) for p in m.group(1).split(",")]
+
+
+def resize_arguments(params: list[tuple[str, bool]], x: torch.Tensor, y: torch.Tensor,
+                     rows: int, stream: int) -> list[int]:
+    """The values for ``params`` (``resize_entry_params``) of one launch
+    from ``x`` (B, h, w, C) into ``y`` (B, oh, ow, C); ``rows`` goes to a
+    parameter named ``rows``, if the entry point has one."""
+    from maunet_tpu_torch.ops.kernels import resize_pack
+
+    b, h, w, c = x.shape
+    _, oh, ow, _ = y.shape
+    values = {"x": x.data_ptr(), "y": y.data_ptr(), "dtype": resize_pack._DTYPES[x.dtype],
+              "B": b, "h": h, "w": w, "C": c, "oh": oh, "ow": ow, "rows": rows,
+              "stream": stream}
+    unknown = [name for name, _ in params if name not in values]
+    if unknown:
+        raise ValueError(f"unknown parameters of maunet_resize_align_corners: {unknown}")
+    return [values[name] for name, _ in params]
+
+
+def parent_resize(path: str, dev: torch.device):
+    """Compile another ``resize_pack.cu`` into a library of its own and
+    return a function (x, out_hw) -> y that launches its kernel."""
+    import ctypes
+
+    from maunet_tpu_torch.ops.kernels import _build, resize_pack
+
+    with open(path) as f:
+        params = resize_entry_params(f.read())
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent_resize")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libparent_resize.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", path, "-o", lib_path],
+                   check=True)
+    fn = ctypes.CDLL(lib_path, mode=os.RTLD_LOCAL).maunet_resize_align_corners
+    fn.argtypes = [ctypes.c_void_p if ptr else ctypes.c_int for _, ptr in params]
+    fn.restype = ctypes.c_int
+
+    def launch(x, out_hw):
+        y = torch.empty((x.shape[0], *out_hw, x.shape[3]), dtype=x.dtype, device=dev)
+        code = fn(*resize_arguments(params, x, y, resize_pack._rows_for(x, out_hw),
+                                    _build.stream_of(x)))
+        if code != 0:
+            raise RuntimeError(f"parent resize_pack: CUDA error {code}")
+        return y
+
+    return launch
+
+
+def resize_profile(dev: torch.device, parent_path: str | None) -> None:
+    """``--resize``: kernel C alone: registers, bits against a parent
+    version, device times beside the floors, the library call and the
+    bound."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import resize_pack
+
+    ptxas_report("resize_pack.cu", resize_kernel_label)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    inputs = [torch.randn(shape, generator=g, device=dev).to(dtype)
+              for shape, _, dtype, _ in cs.RESIZE_CASES]
+    parent = parent_resize(parent_path, dev) if parent_path else None
+    if parent is not None:
+        for x, (shape, out_hw, dtype, _) in zip(inputs, cs.RESIZE_CASES):
+            got, want = resize_pack.resize_pack(x, out_hw), parent(x, out_hw)
+            diff = float((got.float() - want.float()).abs().max())
+            same = torch.equal(got, want)
+            print(f"bits {shape}->{out_hw} {str(dtype).split('.')[-1]}: "
+                  f"{'the same as the parent' if same else f'DIFFER (max |diff| {diff:.3e})'}")
+            if not same:
+                raise AssertionError(f"resize {shape}->{out_hw}: the tree's kernel and the "
+                                     "parent's give other bits")
+    # Each time twice: CUDA events around ten calls back to back, which at
+    # the small shapes reads the host's enqueue of the wrapper, and the summed
+    # kernel durations of a profiler trace, the device's own time.
+    names = {"parent": "parent", "tree": "C", "write": "write-only floor",
+             "copy": "read-plus-write floor", "interpolate": "F.interpolate"}
+    sums = {label: {} for label, _ in RESIZE_PATHS}
+    for label, first in RESIZE_PATHS:
+        for i in range(first, first + 4):
+            shape, out_hw, dtype, _ = cs.RESIZE_CASES[i]
+            x = inputs[i]
+            y = torch.empty((shape[0], *out_hw, shape[3]), dtype=dtype, device=dev)
+            z = torch.empty_like(y)
+            calls = {"tree": lambda: resize_pack.resize_pack(x, out_hw),
+                     "write": lambda: y.fill_(0), "copy": lambda: y.copy_(z),
+                     "interpolate": lambda: interpolate_nhwc(x, out_hw)}
+            order = ["tree", "tree"]
+            if parent is not None:
+                calls["parent"] = lambda: parent(x, out_hw)
+                order = ["parent", "tree", "tree", "parent"]
+            order += ["write", "copy", "interpolate"]
+            row: dict[str, list[tuple[float, float]]] = {}
+            turns = []
+            for key in order:
+                row.setdefault(key, []).append((device_ms(calls[key]), kernel_ms(calls[key])))
+                if key in ("parent", "tree"):
+                    turns.append(f"{key} {row[key][-1][0]:.4f}/{row[key][-1][1]:.4f}")
+            nbytes = (x.numel() + y.numel()) * x.element_size()
+            bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+            mean = {k: tuple(statistics.mean(v[j] for v in vs) for j in (0, 1))
+                    for k, vs in row.items()}
+            print(f"time {label} {shape}->{out_hw}: " + ", ".join(
+                f"{names[k]} {mean[k][1]:.4f}" for k in names if k in mean)
+                + f" ms of kernel time (trace); bound {bound:.4f} (bytes: {nbytes / 1e6:.1f} MB); "
+                "events around ten calls: " + ", ".join(
+                    f"{names[k]} {mean[k][0]:.4f}" for k in names if k in mean)
+                + f"; in turns, events/trace: {', '.join(turns)}")
+            # The kernel at other strip heights: the same bits, and the
+            # kernel time of each (the wrapper picks _strip_rows).
+            want = resize_pack.resize_pack(x, out_hw)
+            heights = []
+            for rows in STRIP_SWEEP:
+                if not torch.equal(resize_pack._launch(x, out_hw, rows), want):
+                    raise AssertionError(f"resize {shape}->{out_hw}: {rows} rows a thread "
+                                         "give other bits")
+                ms = kernel_ms(lambda: resize_pack._launch(x, out_hw, rows))
+                heights.append(f"{rows}: {ms:.4f}")
+            print(f"strips {label} {shape}->{out_hw} (the wrapper takes "
+                  f"{resize_pack._rows_for(x, out_hw)}), rows a thread: "
+                  + ", ".join(heights) + " ms of kernel time (trace)")
+            total = sums[label]
+            total["bound"] = total.get("bound", 0.0) + bound
+            for k, (e, t) in mean.items():
+                prev = total.get(k, (0.0, 0.0))
+                total[k] = (prev[0] + e, prev[1] + t)
+    for label, total in sums.items():
+        print(f"sum {label} (four upsamples): " + ", ".join(
+            f"{names[k]} {total[k][1]:.4f}" for k in names if k in total)
+            + f" ms of kernel time (trace); bound {total['bound']:.4f}; events around ten "
+            "calls: " + ", ".join(f"{names[k]} {total[k][0]:.4f}" for k in names if k in total))
+
+
+# The path shapes of chip_smoke.RESIZE_CASES whose times --resize sums, four
+# each: (label, index of the first).
+RESIZE_PATHS = (("serving B=8", 0), ("evaluation U-Net B=16", 4),
+                ("evaluation U-Net++ B=16", 8))
+# The strip heights --resize times at each path shape.
+STRIP_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+def kernel_ms(fn, calls: int = 10) -> float:
+    """Device time per call as the summed kernel, memset and memcpy durations
+    of a ``torch.profiler`` trace of ``calls`` calls after three warm-up
+    calls: the host's enqueue between the launches does not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    # A profiler session now and then returns a trace without device events
+    # (once in a process's first session, on the H100): take the next one.
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            path = os.path.join(tmpdir, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                doc = json.load(f)
+        ms = kernel_sum_ms(doc["traceEvents"] if isinstance(doc, dict) else doc, calls)
+        if ms > 0:
+            return ms
+    raise RuntimeError("three profiler traces held no device events")
+
+
+def kernel_sum_ms(events: list[dict], calls: int) -> float:
+    """The summed durations (µs in the trace) of the kernel, memset and
+    memcpy events (``copy_`` within the card is a memcpy), in ms per call."""
+    return sum(float(e["dur"]) for e in events
+               if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")) / 1e3 / calls
+
+
+def interpolate_nhwc(x: torch.Tensor, out_hw) -> torch.Tensor:
+    return torch.nn.functional.interpolate(x.permute(0, 3, 1, 2), size=out_hw,
+                                           mode="bilinear", align_corners=True)
 
 
 def conv_profile(dev: torch.device) -> None:
@@ -480,11 +740,19 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                       help="check and time the fused 3x3 conv kernel alone")
     mode.add_argument("--lstm", action="store_true",
                       help="check and time the LSTM kernels alone")
+    mode.add_argument("--resize", action="store_true",
+                      help="check and time the resize kernel alone")
+    parser.add_argument("--parent", default=None, metavar="PATH",
+                        help="with --resize: another resize_pack.cu to hold the "
+                             "tree's kernel against and time in turns with it")
     parser.add_argument("--trace", default=None,
                         help="where the Chrome trace is written (default: "
                              "build/port_forward_trace.json, port_train_trace.json "
                              "or port_eval_trace.json)")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.parent is not None and not args.resize:
+        parser.error("--parent needs --resize")
+    return args
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -503,6 +771,8 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda", 0)
     if args.conv:
         conv_profile(dev)
+    elif args.resize:
+        resize_profile(dev, args.parent)
     elif args.lstm:
         ptxas_report("lstm.cu", lstm_kernel_label)
         lstm_checks(dev)

@@ -8,6 +8,8 @@ only on the card, where ``chip_smoke.py`` compares them with these plain
 versions.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +156,78 @@ def test_resize_matches_torch_interpolate(rng):
         align_corners=True).permute(0, 2, 3, 1)
     got = port_resize.resize_align_corners(x, (13, 4))
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@functools.cache
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _walk_taps(n_in, n_out, oy0, rows):
+    """The resize kernel's row walk, step by step as ``csrc/resize_pack.cu``
+    takes it: (lo, hi, frac) of each output row of the strip from oy0, with
+    the integer accumulator and one correctly rounded f32 division a row."""
+    den = n_out - 1 if n_out > 1 else 1
+    step = n_in - 1 if n_out > 1 and n_in > 1 else 0
+    lo, rem = divmod(oy0 * step, den)
+    taps = []
+    for _ in range(oy0, min(oy0 + rows, n_out)):
+        taps.append((lo, min(lo + 1, n_in - 1), np.float32(rem) / np.float32(den)))
+        rem += step
+        while rem >= den:
+            rem -= den
+            lo += 1
+    return taps
+
+
+@pytest.mark.parametrize("n_in,n_out", [
+    (16, 32), (32, 64), (64, 128), (128, 256), (15, 30), (30, 31), (12, 25), (1, 7),
+    (9, 1), (1, 1), (31, 12), (250, 7)])
+@pytest.mark.parametrize("rows", [1, 3, 8, 32])
+def test_resize_walk_taps_match_interp_matrix(n_in, n_out, rows):
+    """The kernel's row walk, cut into strips of ``rows``, gives the weights
+    of ``ops/resize._interp_matrix`` bit for bit: n -> 2n, the odd fix-ups,
+    1 -> n, n -> 1 and downsamples whose walk jumps several rows."""
+    w = np.zeros((n_out, n_in), np.float32)
+    oy = 0
+    for oy0 in range(0, n_out, rows):
+        for lo, hi, frac in _walk_taps(n_in, n_out, oy0, rows):
+            w[oy, lo] = np.float32(1.0) - frac
+            w[oy, hi] += frac
+            oy += 1
+    assert oy == n_out
+    np.testing.assert_array_equal(w, port_resize._interp_matrix(n_in, n_out))
+
+
+@pytest.mark.parametrize("case", range(17))
+def test_strip_rows_cover_every_output_row_once(case):
+    """At each of ``chip_smoke.py``'s C shapes the strips of ``_strip_rows``
+    rows cover every output row exactly once, with one thread per strip,
+    column and channel group."""
+    shape, out_hw, dtype, _ = _chip_smoke().RESIZE_CASES[case]
+    b, _, _, c = shape
+    oh, ow = out_hw
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    groups = c // vec if c % vec == 0 else c
+    rows = port_rp._strip_rows(b, oh, ow, groups)
+    assert rows == port_rp._rows_for(torch.empty(shape, dtype=dtype, device="meta"), out_hw)
+    assert rows in port_rp._STRIP_ROWS
+    strips = -(-oh // rows)
+    covered = np.zeros(oh, np.int64)
+    for s in range(strips):
+        covered[s * rows:min((s + 1) * rows, oh)] += 1
+    assert (covered == 1).all()
+    threads = b * strips * ow * groups
+    assert threads < 2 ** 31
+    # A taller strip leaves fewer than _MIN_THREADS threads; every path
+    # shape takes the tallest.
+    assert rows == 8 or b * -(-oh // (2 * rows)) * ow * groups < port_rp._MIN_THREADS
+    assert rows == 8 or case >= 12    # the twelve decoder shapes come first

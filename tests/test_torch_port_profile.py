@@ -96,26 +96,32 @@ def test_eval_family(profile_port, name, want):
 
 @pytest.mark.parametrize("argv, mode", [
     ([], None), (["--lstm"], "lstm"), (["--conv"], "conv"),
-    (["--train", "--trace", "t.json"], "train"), (["--eval"], "eval")])
+    (["--train", "--trace", "t.json"], "train"), (["--eval"], "eval"),
+    (["--resize"], "resize"), (["--resize", "--parent", "x.cu"], "resize")])
 def test_parse_args_modes(profile_port, argv, mode):
     args = profile_port.parse_args(argv)
-    modes = [m for m in ("train", "eval", "conv", "lstm") if getattr(args, m)]
+    modes = [m for m in ("train", "eval", "conv", "lstm", "resize") if getattr(args, m)]
     assert modes == ([mode] if mode else [])
     assert args.trace == ("t.json" if "--trace" in argv else None)
+    assert args.parent == ("x.cu" if "--parent" in argv else None)
 
 
-@pytest.mark.parametrize("argv", [["--lstm", "--conv"], ["--lstm", "--train"], ["--lstm", "x"]])
+@pytest.mark.parametrize("argv", [
+    ["--lstm", "--conv"], ["--lstm", "--train"], ["--lstm", "x"], ["--resize", "--lstm"],
+    ["--resize", "--conv"], ["--parent", "x.cu"], ["--lstm", "--parent", "x.cu"],
+    ["--resize", "x.cu"]])
 def test_lstm_mode_refuses_other_modes_and_arguments(profile_port, argv):
     with pytest.raises(SystemExit):
         profile_port.parse_args(argv)
 
 
-def test_lstm_mode_needs_a_card(profile_port, capsys):
+@pytest.mark.parametrize("mode", ["--lstm", "--resize"])
+def test_lstm_mode_needs_a_card(profile_port, capsys, mode):
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the check is for hosts without it")
-    assert profile_port.main(["--lstm"]) == 1
+    assert profile_port.main([mode]) == 1
     assert "cuda" in capsys.readouterr().err
 
 
@@ -131,3 +137,57 @@ def test_lstm_mode_needs_a_card(profile_port, capsys):
 ])
 def test_lstm_kernel_label(profile_port, entry, want):
     assert profile_port.lstm_kernel_label(f"ptxas info    : Compiling entry function {entry}") == want
+
+
+@pytest.mark.parametrize("entry, want", [
+    ("'_ZN12_GLOBAL__N_127resize_align_corners_kernelI13__nv_bfloat16Li8EEEvPKT_PS2_iiiiiiii'",
+     "resize_align_corners_kernel<bf16, V = 8>"),
+    ("'_ZN12_GLOBAL__N_127resize_align_corners_kernelIfLi4EEEvPKT_PS1_iiiiiiii'",
+     "resize_align_corners_kernel<f32, V = 4>"),
+    ("'_ZN12_GLOBAL__N_127resize_align_corners_kernelI13__nv_bfloat16Li1EEEvPKT_PS2_iiiiiii'",
+     "resize_align_corners_kernel<bf16, V = 1>"),
+])
+def test_resize_kernel_label(profile_port, entry, want):
+    assert profile_port.resize_kernel_label(
+        f"ptxas info    : Compiling entry function {entry}") == want
+
+
+def test_resize_parent_arguments_follow_its_signature(profile_port):
+    """``--parent`` calls another version of ``resize_pack.cu`` with the
+    arguments its entry point names: the tree's, with or without a strip
+    height, in any order."""
+    import torch
+
+    with open(os.path.join(REPO, "maunet_tpu_torch", "csrc", "resize_pack.cu")) as f:
+        tree = profile_port.resize_entry_params(f.read())
+    assert tree == [("x", True), ("y", True), ("dtype", False), ("B", False), ("h", False),
+                    ("w", False), ("C", False), ("oh", False), ("ow", False), ("rows", False),
+                    ("stream", True)]
+    old = profile_port.resize_entry_params(
+        'extern "C" int maunet_resize_align_corners(const void* x, void* y, int dtype,\n'
+        "    int B, int h, int w, int C, int oh,\n    int ow, void* stream) {")
+    assert [name for name, _ in old] == ["x", "y", "dtype", "B", "h", "w", "C", "oh", "ow",
+                                         "stream"]
+    x = torch.zeros(2, 3, 5, 8, dtype=torch.bfloat16)
+    y = torch.zeros(2, 6, 9, 8, dtype=torch.bfloat16)
+    assert profile_port.resize_arguments(old, x, y, 4, 7) == [
+        x.data_ptr(), y.data_ptr(), 1, 2, 3, 5, 8, 6, 9, 7]
+    assert profile_port.resize_arguments(tree, x.float(), y.float(), 4, 7)[2:] == [
+        0, 2, 3, 5, 8, 6, 9, 4, 7]
+    with pytest.raises(ValueError, match="unknown parameters"):
+        profile_port.resize_arguments([("x", True), ("flags", False)], x, y, 4, 7)
+    with pytest.raises(ValueError, match="no maunet_resize_align_corners"):
+        profile_port.resize_entry_params("int main() {}")
+
+
+def test_kernel_sum_counts_device_work_only(profile_port):
+    events = [
+        {"cat": "kernel", "name": "resize_align_corners_kernel", "ts": 0, "dur": 30},
+        {"cat": "gpu_memset", "name": "Memset (Device)", "ts": 40, "dur": 10},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 0, "dur": 500},
+        {"cat": "kernel", "name": "resize_align_corners_kernel", "ts": 100, "dur": 50},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)", "ts": 200, "dur": 100},
+        {"cat": "cpu_op", "name": "aten::copy_", "ts": 190, "dur": 400},
+    ]
+    assert profile_port.kernel_sum_ms(events, 2) == pytest.approx(0.095)
+    assert profile_port.kernel_sum_ms([], 5) == 0.0

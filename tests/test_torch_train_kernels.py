@@ -242,11 +242,16 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
         lstm.lstm_gate_terms(x, w, lens, h_all, torch.zeros(b, t, hd + 1))
     dw = lstm.lstm_dw(h_all, dx, lens)
     name, args = calls[-1]
-    # B*T = 30 rows: one 32-row slice.
-    assert dw.shape == (hd, 4 * hd) and name == "maunet_lstm_dw" and args[5:10] == (b, t, hd, 1, 32)
+    # B*T = 30 rows: two slices of one 16-row chunk, one block of dW's tile.
+    assert dw.shape == (hd, 4 * hd) and name == "maunet_lstm_dw"
+    assert args[:3] == (h_all.data_ptr(), dx.data_ptr(), lens.data_ptr())
+    assert args[4] == dw.data_ptr() and args[5:10] == (b, t, hd, 2, 16)
     lstm.lstm_dw(torch.zeros(16, 828, 96), torch.zeros(16, 828, 384),
                  torch.zeros(16, dtype=torch.int32))
-    assert calls[-1][1][8:10] == (8, 1664)    # 13,248 rows in 8 slices of 1,664
+    # 13,248 rows in 92 slices of 144: 276 blocks of 96 x 128 outputs.
+    assert calls[-1][1][8:10] == (92, 144)
+    with pytest.raises(ValueError, match="lengths must be"):
+        lstm.lstm_dw(h_all, dx, lens.long())
     # The forward and the backward's recurrence hold W_hh in registers:
     # 1 <= H <= 96.
     with pytest.raises(ValueError, match="outside 1..96"):
@@ -284,6 +289,65 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
     with torch.no_grad():
         packed_vgg.conv3x3_fused(parts, [weight], scale=torch.ones(8), bias=torch.zeros(8))
     assert calls[-1][0] == "maunet_conv3x3_fused"
+
+
+def test_resize_branch_marshals_arguments(monkeypatch):
+    """The CUDA branch of C, run on CPU tensors against a recording stand-in
+    for its C entry point: the shape, dtype, strip height and stream reach
+    the kernel, the output has the asked size, and the launch is counted
+    once, in ``_launch``."""
+    calls = []
+
+    def fake_function(name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes) == 11, (name, args)
+            calls.append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(_build, "function", fake_function)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 5)
+    before = resize_pack.resize_pack.launches
+    for shape, dtype, out_hw, code, groups in [
+            ((8, 128, 128, 128), torch.bfloat16, (256, 256), 1, 16),
+            ((2, 15, 15, 64), torch.float32, (30, 30), 0, 16),
+            ((2, 15, 15, 3), torch.bfloat16, (30, 31), 1, 3)]:
+        x = torch.zeros(shape, dtype=dtype)
+        y = resize_pack.resize_pack(x, out_hw)
+        name, args = calls[-1]
+        assert name == "maunet_resize_align_corners" and y.shape == (shape[0], *out_hw, shape[3])
+        assert args[:2] == (x.data_ptr(), y.data_ptr()) and args[10] == 5
+        assert args[2:9] == (code, *shape, *out_hw)
+        assert args[9] == resize_pack._strip_rows(shape[0], *out_hw, groups)
+    assert calls[0][1][9] == 8 and resize_pack.resize_pack.launches == before + 3
+    resize_pack._launch(torch.zeros(1, 4, 4, 8), (7, 7), 3)
+    assert calls[-1][1][7:10] == (7, 7, 3) and resize_pack.resize_pack.launches == before + 4
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_pack.resize_pack(torch.zeros(1, 4, 8, 4).transpose(1, 2), (8, 8))
+
+
+@pytest.mark.parametrize("b, t, hd", [(16, 828, 96), (1, 828, 96), (3, 10, 8), (5, 64, 50),
+                                      (1, 1, 1), (200, 828, 96), (2, 7, 130)])
+def test_dw_plan_covers_every_row_once(b, t, hd):
+    """dW's slices are whole 16-row chunks that cover each of the B*T rows
+    exactly once, the plan depends on the shape alone, and the training
+    shape gets at least two blocks per SM of the H100's 132."""
+    plan = lstm._dw_plan(b, t, hd)
+    assert plan == lstm._dw_plan(b, t, hd)
+    rows, per = b * t, plan["rows_per_slice"]
+    assert per % 16 == 0 and per >= 16
+    covered = np.zeros(rows, np.int64)
+    for s in range(plan["slices"]):
+        covered[s * per:min((s + 1) * per, rows)] += 1
+    assert (covered == 1).all() and (plan["slices"] - 1) * per < rows
+    assert plan["col_tiles"] * 128 >= 4 * hd and plan["unit_tiles"] * 96 >= hd
+    blocks = plan["slices"] * plan["col_tiles"] * plan["unit_tiles"]
+    if -(-rows // 16) >= 264:
+        assert blocks >= 2 * 132
+    assert plan["slices"] <= 65535
+    if (b, t, hd) == (16, 828, 96):
+        assert (plan["slices"], per, blocks) == (92, 144, 276)
 
 
 @pytest.mark.parametrize("entry, counted, checks", [
