@@ -31,10 +31,12 @@ Phases, one output line each (or a few for the kernel table):
    kernels take (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
    B = 1, H = 50, 64 and 96, T = 64 and 828).  F is two launches, the gate
    terms of every step and then the recurrence: the first has a row of its
-   own (``lstm_gate_terms``) against its plain version, compared on the
-   steps t < length that it writes.  C runs at every shape of
-   ``RESIZE_CASES``.  Two launches of C, D and dW on the same inputs must
-   give the same bits;
+   own (``lstm_gate_terms``) against its plain version, at the training
+   batch and at ``LSTM_EDGE_CASES``, compared on the steps t < length that
+   it writes.  C runs at every shape of ``RESIZE_CASES``, D at every shape
+   of ``MASKED_CASES`` (the evaluation batch, B = 8 and 3 of it, a 250²
+   tile, bf16, f16, absent classes, classes outside 0..8, C = 1, 3, 4).
+   Two launches of C, D and dW on the same inputs must give the same bits;
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
    and ``golden_unetpp.npz`` run on the card in bf16 and are held against the
    JAX package's recorded f32 outputs;
@@ -332,6 +334,49 @@ RESIZE_CASES = (
     ((2, 15, 15, 3), (30, 31), torch.bfloat16, False))
 
 
+# D's cases in phase 3, as (shape, dtype, tolerance, classes made absent,
+# with class values outside 0..8, on the evaluation path): the evaluation
+# batch, and B = 8 and 3 of it; one 250² tile; bf16 inputs; a map with absent
+# classes; one with class values outside 0..8, which count nowhere; then the
+# other channel counts and f16, which the evaluator does not send.
+MASKED_CASES = (
+    ((16, 256, 256, 2), torch.float32, 5e-5, (), False, True),
+    ((8, 256, 256, 2), torch.float32, 5e-5, (), False, False),
+    ((3, 256, 256, 2), torch.float32, 5e-5, (), False, False),
+    ((1, 250, 250, 2), torch.float32, 5e-5, (), False, False),
+    ((16, 256, 256, 2), torch.bfloat16, 1e-4, (), False, False),
+    ((4, 50, 50, 2), torch.float32, 5e-5, (3, 8), False, False),
+    ((4, 50, 50, 2), torch.float32, 5e-5, (), True, False),
+    ((2, 50, 50, 3), torch.float16, 1e-4, (), False, False),
+    ((2, 33, 47, 4), torch.float32, 5e-5, (5,), False, False),
+    ((2, 125, 125, 1), torch.bfloat16, 1e-4, (), False, False))
+
+
+def masked_inputs(g: torch.Generator, dev, shape, dtype, absent=(), outside=False):
+    """Seeded (pred, target (B, H, W, C) of ``dtype``, class map (B, H, W)
+    int32) on ``dev``: classes 0..8, those of ``absent`` relabelled, and with
+    ``outside`` a few pixels of the first and last sample at 11 and -3."""
+    pred = torch.randn(shape, generator=g, device=dev).to(dtype)
+    target = torch.randn(shape, generator=g, device=dev).to(dtype)
+    dw = torch.randint(0, 9, shape[:3], generator=g, device=dev, dtype=torch.int32)
+    for k in absent:
+        dw[dw == k] = (k + 1) % 9
+    if outside:
+        dw[0, :5] = 11
+        dw[-1, 5:7] = -3
+    return pred, target, dw
+
+
+def masked_work(shape, itemsize: int):
+    """D's bytes (pred, target and the class map read once, the sums written
+    once) and operations (a subtraction, |err|, err^2 and two adds per value,
+    one add per pixel)."""
+    b, h, w, c = shape
+    pixels = b * h * w
+    return (pixels * (2 * c * itemsize + 4) + b * (2 * c + 1) * 9 * 4,
+            pixels * (5 * c + 1), "f32")
+
+
 def lstm_inputs(g: torch.Generator, dev, hidden: int, t: int, lens):
     """Seeded (x_proj (B, t, 4H), W_hh (H, 4H), lengths (B,) int32) on
     ``dev``, W_hh drawn as torch's LSTM initialises it."""
@@ -447,40 +492,16 @@ def check_kernels(table: KernelTable, dev) -> None:
             row["unprepared_ms"] = row.get("unprepared_ms", 0.0) + unprepared_ms
             row["two_launches_ms"] = row.get("two_launches_ms", 0.0) + two_ms
 
-    # D: the evaluation batch; one 250² tile; bf16 inputs; a map with absent
-    # classes; one with class values outside 0..8, which count nowhere; then
-    # the other channel counts and f16, which the evaluator does not send.
-    def class_map(*shape, absent=(), outside=False):
-        dw = torch.randint(0, 9, shape, generator=g, device=dev, dtype=torch.int32)
-        for k in absent:
-            dw[dw == k] = (k + 1) % 9
-        if outside:
-            dw[0, :5] = 11
-            dw[-1, 5:7] = -3
-        return dw
-
-    for shape, dtype, tol, absent, outside, on_path in [
-            ((16, 256, 256, 2), torch.float32, 5e-5, (), False, True),
-            ((1, 250, 250, 2), torch.float32, 5e-5, (), False, False),
-            ((16, 256, 256, 2), bf, 1e-4, (), False, False),
-            ((4, 50, 50, 2), torch.float32, 5e-5, (3, 8), False, False),
-            ((4, 50, 50, 2), torch.float32, 5e-5, (), True, False),
-            ((2, 50, 50, 3), torch.float16, 1e-4, (), False, False),
-            ((2, 33, 47, 4), torch.float32, 5e-5, (5,), False, False),
-            ((2, 125, 125, 1), bf, 1e-4, (), False, False)]:
-        pred, target = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
-        dw = class_map(*shape[:3], absent=absent, outside=outside)
-        pixels = shape[0] * shape[1] * shape[2]
-        c = shape[3]
-        work = (pixels * (2 * c * pred.element_size() + 4) + shape[0] * (2 * c + 1) * 9 * 4,
-                pixels * (5 * c + 1), "f32")
+    # D at every shape of MASKED_CASES.
+    for shape, dtype, tol, absent, outside, on_path in MASKED_CASES:
+        pred, target, dw = masked_inputs(g, dev, shape, dtype, absent, outside)
         table.check("masked_class_sums",
                     f"{shape} {str(dtype).split('.')[-1]}"
                     f"{' absent ' + str(absent) if absent else ''}"
                     f"{' with classes outside 0..8' if outside else ''}",
                     lambda: masked_stats.masked_class_sums(pred, target, dw),
                     lambda: masked_stats.masked_class_sums_plain(pred, target, dw),
-                    tol, tol, on_path, work, None)
+                    tol, tol, on_path, masked_work(shape, pred.element_size()), None)
         first, second = (masked_stats.masked_class_sums(pred, target, dw) for _ in range(2))
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError("masked_class_sums: two launches on the same inputs differ")
@@ -524,6 +545,12 @@ def check_kernels(table: KernelTable, dev) -> None:
         return ((steps * 6 * h + h * 4 * h + b * h + rows * 4 * h) * 4,
                 steps * (16 * h * h + 80 * h), "f32")
 
+    def gate_terms_work(steps, h):
+        """The gate terms' bytes (x_proj, h_{t-1}, c_t and the terms of the
+        steps t < length, W_hh) and operations (the H x 4H product and the
+        epilogue)."""
+        return (steps * 12 * h * 4 + 4 * h * h * 4, steps * (8 * h * h + 80 * h), "f32")
+
     for edge_hidden, t, lens in LSTM_EDGE_CASES:
         steps, g4 = sum(lens), 4 * edge_hidden
         lens, x_proj, w_hh, label = lstm_case(lens, edge_hidden, t)
@@ -541,6 +568,12 @@ def check_kernels(table: KernelTable, dev) -> None:
                     False, (steps * g4 * 4 + edge_hidden * g4 * 4
                             + 2 * len(lens) * t * edge_hidden * 4, flops, "f32"))
         _, h_all, c_all = lstm.lstm_forward_stash_plain(x_proj, w_hh, lens)
+        active = (torch.arange(t, device=dev)[None, :] < lens[:, None])[..., None]
+        table.check("lstm_gate_terms", label,
+                    lambda: lstm.lstm_gate_terms(x_proj, w_hh, lens, h_all, c_all),
+                    lambda: lstm.lstm_gate_terms_plain(x_proj, w_hh, lens, h_all, c_all),
+                    1e-5, 1e-5, False, gate_terms_work(steps, edge_hidden), None,
+                    view=lambda terms: torch.where(active, terms, 0.0))
         table.check("lstm_backward", label,
                     lambda: lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad),
                     lambda: lstm.lstm_backward_plain(x_proj, w_hh, lens, h_all, c_all, grad)[0],
@@ -569,9 +602,7 @@ def check_kernels(table: KernelTable, dev) -> None:
         table.check("lstm_gate_terms", label,
                     lambda: lstm.lstm_gate_terms(x_proj, w_hh, lens, h_all, c_all),
                     lambda: lstm.lstm_gate_terms_plain(x_proj, w_hh, lens, h_all, c_all),
-                    1e-5, 1e-5, on_path,
-                    ((steps * (gates + 2 * hidden + 6 * hidden)) * 4 + weight_bytes,
-                     steps * (2 * hidden * gates + 20 * gates), "f32"), None,
+                    1e-5, 1e-5, on_path, gate_terms_work(steps, hidden), None,
                     view=lambda terms: torch.where(active, terms, 0.0))
         table.check("lstm_backward", label,
                     lambda: lstm.lstm_backward(x_proj, w_hh, lens, h_all, c_all, grad),

@@ -58,15 +58,39 @@
 //   * lstm_gate_terms_kernel.  The gate recompute needs only x_proj and the
 //     stashed h_{t-1}, nothing the backward carries, so it leaves the serial
 //     chain: pre = x_proj + h_{t-1} . W_hh for every (b, t < length) at once,
-//     a (B*T x H) . (H x 4H) product (0.98 GFLOP at B = 16, T = 828), tiled
-//     64 steps x 32 units (x 4 gates) per block over k chunks of 32 in shared
-//     memory, hundreds of blocks for the 132 SMs.  Its epilogue writes the
-//     step's coefficients, terms (B, T, 6H) = [g_i, g_f, g_g, g_o, a, f] with
+//     a (rows x H) . (H x 4H) product, whose epilogue writes the step's
+//     coefficients, terms (B, T, 6H) = [g_i, g_f, g_g, g_o, a, f] with
 //     tc = tanh(c_t): g_i = g i(1-i), g_f = c_{t-1} f(1-f), g_g = i(1-g^2),
 //     g_o = tc o(1-o), a = o(1-tc^2), so that the recurrence is
 //     dct = dc + dh a, d_o = dh g_o, d_{i,f,g} = dct g_{i,f,g}, dc = dct f.
-//     Rows t >= length are neither read nor written.  Bound: about 0.015 ms
-//     by operations, about 0.02 ms by the bytes it moves.
+//     Rows t >= length are neither read nor written.  At the training
+//     lengths (7,648 of 13,248 rows) that is 0.564 GFLOP, 0.0084 ms at the
+//     f32 peak, and 35 MB (x_proj 11.7, h 2.9, c 2.9, terms 17.6), 0.0105 ms
+//     at 3.35 TB/s: bound by bytes, with the product close behind, so the
+//     two have to overlap.  The first version (64-step x 32-unit tiles of
+//     B x T, 624 blocks) reloaded its W_hh slice from L2 in every block,
+//     about 30 MB for a 147 KB matrix, with scalar loads and a division per
+//     element, never overlapped copies with products, computed the rows
+//     past length of a tile that straddled it, and spilled.  Now persistent
+//     blocks, one a SM, keep all of W_hh in shared memory as it lies in
+//     device memory (147 KB at H = 96), loaded once with 16-byte cp.async
+//     copies, and walk tiles of 32 consecutive active rows, found from a
+//     prefix of the clamped lengths (warp_resolve_rows), so no row
+//     t >= length is computed.  A thread keeps 4 rows x 3 units x 4 gates in
+//     registers, at most 128 registers: each W_hh float read from shared
+//     memory feeds 4 FMAs and each h float4 48, and a half-warp's W_hh reads
+//     are 16 consecutive words.  The next tile's h_{t-1} rows and this
+//     tile's x_proj come through cp.async, and c_t and c_{t-1} into
+//     registers, while the product runs; the epilogue reads x_proj from
+//     shared memory, a warp's lanes on consecutive units, so the reads and
+//     the six stores are coalesced.  Each output is one fmaf chain over
+//     k = 0, 1, ... from 0, then + x_proj, as the first version summed it:
+//     the same bits.  On the H100 it takes 0.037 ms at the training batch
+//     against the first version's 0.044 (NVIDIA H100 80GB HBM3, 700 W):
+//     about 7 us of product a tile, 3 of the epilogue's transcendentals and
+//     then its stores, one after the other on the SM's one block.  A layout
+//     of W_hh as [k][unit][gate] (one float4 a unit) read fewer words but
+//     took 4-byte copies with a division each to load, 6 us a block.
 //   * lstm_backward_kernel<KS>, the recurrence on B's layout.  What bounds it
 //     is the serial chain: 828 steps, each dh = dgates . W_hh^T, 36,864 FMAs
 //     at H = 96 issued by one SM (288 cycles on its 128 f32 lanes: 828 x 288
@@ -220,89 +244,280 @@ lstm_last_hidden_kernel(const float* __restrict__ xp, const float* __restrict__ 
   }
 }
 
-constexpr int GT_ROWS = 64;   // steps per tile of the gate-terms product
-constexpr int GT_UNITS = 32;  // units per tile (blockDim.x), each with its four gate columns
-constexpr int GT_K = 32;      // k chunk held in shared memory
-constexpr int GT_TY = 8;      // blockDim.y; a thread owns GT_ROWS / GT_TY steps x 4 gates of a unit
+__device__ __forceinline__ void cp_async16(float* smem, const float* src, bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* src, bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most one committed group (the newest) is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+constexpr int GT_ROWS = 32;                 // active rows per tile
+constexpr int GT_UNITS = kFwdMaxHidden;     // every unit in one tile
+constexpr int GT_THREADS = 256;             // 4 row quarters x 2 unit halves of warps
+constexpr int GT_RPT = 4;                   // rows a thread: r0, r0 + 2, r0 + 4, r0 + 6
+constexpr int GT_UPT = 3;                   // units a thread: u0, u0 + 16, u0 + 32
+
+// The gate-terms kernel's dynamic shared memory at hidden size H, in floats:
+//   w_s [kp][4H]           W_hh as it lies in device memory, so that it loads
+//                          as 16-byte copies; zero rows k >= H; kp = H
+//                          rounded up to 4;
+//   h_s [2][GT_ROWS][hs]   h_{t-1} of a tile's rows, zero at t = 0 and past
+//                          the last active row; hs = kp, or kp + 4 where kp is
+//                          a multiple of 32, so that the two rows a warp reads
+//                          at once fall on distinct banks;
+//   x_s [GT_ROWS][xs]      x_proj of the tile's rows; xs % 32 == 16, so the
+//                          epilogue's reads of two rows fill all 32 banks;
+//   then ints: row_s [2][GT_ROWS] (b * T + t of each row, or -1), t_s
+//   [2][GT_ROWS] (t), and the number of active rows.
+struct GateLayout {
+  int kp, hs, xs, h_off, x_off, i_off, bytes;
+};
+
+__host__ __device__ inline GateLayout gate_layout(int H) {
+  GateLayout L;
+  L.kp = (H + 3) / 4 * 4;
+  L.hs = L.kp % 32 == 0 ? L.kp + 4 : L.kp;
+  L.xs = 4 * H + (48 - 4 * H % 32) % 32;
+  L.h_off = L.kp * 4 * H;
+  L.x_off = L.h_off + 2 * GT_ROWS * L.hs;
+  L.i_off = L.x_off + GT_ROWS * L.xs;
+  L.bytes = (L.i_off + 4 * GT_ROWS + 1) * 4;
+  return L;
+}
+
+__device__ __forceinline__ int clamped_length(const int* lengths, int b, int B, int T) {
+  return b < B ? max(0, min(lengths[b], T)) : 0;
+}
+
+// Called by a whole warp: the number of rows t < length over the batch.
+__device__ int warp_active_rows(const int* __restrict__ lengths, int B, int T, int lane) {
+  int n = 0;
+  for (int b0 = 0; b0 < B; b0 += 32) n += clamped_length(lengths, b0 + lane, B, T);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(kFull, n, off);
+  return n;
+}
+
+// Called by a whole warp: lane l finds active row a = first + l (the rows
+// t < length of every sample, in order) and writes its b * T + t to row_s[l]
+// and t to t_s[l], or -1 past the last active row.  A prefix of the clamped
+// lengths, 32 samples at a time.
+__device__ void warp_resolve_rows(const int* __restrict__ lengths, int B, int T, int first,
+                                  int* row_s, int* t_s, int lane) {
+  const int a = first + lane;
+  int row = -1, t = 0, base = 0;
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const int len = clamped_length(lengths, b0 + lane, B, T);
+    int incl = len;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    int j = 0;  // the samples of this chunk whose rows all lie before a
+    for (int i = 0; i < 32; ++i) j += base + __shfl_sync(kFull, incl, i) <= a;
+    const int incl_j = __shfl_sync(kFull, incl, j & 31);
+    const int len_j = __shfl_sync(kFull, len, j & 31);
+    if (a >= base && a < base + total) {
+      t = a - base - (incl_j - len_j);
+      row = (b0 + j) * T + t;
+    }
+    base += total;
+  }
+  row_s[lane] = row;
+  t_s[lane] = t;
+}
+
+// Stage rows (GT_ROWS of them) of `width` floats into shared memory at a
+// row stride `stride`: row r from src + (row_s[r] + shift) * width, or zeros
+// where `zero(r)`.  VEC: 16-byte copies (width and src 16-byte aligned).
+template <bool VEC, typename Zero>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, const float* __restrict__ src,
+                                           const int* row_s, int shift, int width, int padded,
+                                           Zero zero) {
+  if (VEC) {
+    const int per = padded / 4;
+    for (int i = threadIdx.x; i < GT_ROWS * per; i += GT_THREADS) {
+      const int r = i / per, k = (i - r * per) * 4;
+      const bool ok = !zero(r) && k < width;
+      cp_async16(dst + r * stride + k,
+                 ok ? src + (static_cast<long long>(row_s[r]) + shift) * width + k : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < GT_ROWS * padded; i += GT_THREADS) {
+      const int r = i / padded, k = i - r * padded;
+      const bool ok = !zero(r) && k < width;
+      cp_async4(dst + r * stride + k,
+                ok ? src + (static_cast<long long>(row_s[r]) + shift) * width + k : src, ok);
+    }
+  }
+}
 
 // terms[b, t] = [g_i, g_f, g_g, g_o, o(1 - tc^2), f] (6H) for t < length[b],
-// from pre = x_proj[b, t] + h_{t-1} . W_hh (h_{-1} = 0).  Grid
-// (ceil(T / GT_ROWS), B, ceil(H / GT_UNITS)); a tile past the row's length
-// returns at once.
-__global__ void __launch_bounds__(GT_UNITS * GT_TY)
+// from pre = x_proj[b, t] + h_{t-1} . W_hh (h_{-1} = 0).  Persistent blocks,
+// at most one a SM, each with all of W_hh in shared memory, walk tiles of
+// GT_ROWS consecutive active rows (gate_layout).  A thread owns 4 rows x 3
+// units x 4 gates in registers: each W_hh float read feeds 4 FMAs, each h
+// float4 48.  Each output is one fmaf chain over k = 0..kp-1 from 0, then
+// + x_proj, as the first version of this kernel summed it, so the terms keep
+// its bits.  VEC: H % 4 == 0 and x_proj, h_all, w_hh 16-byte aligned.
+// __launch_bounds__(GT_THREADS, 2) holds the kernel to 128 registers a
+// thread, though its shared memory admits one block a SM.
+template <bool VEC>
+__global__ void __launch_bounds__(GT_THREADS, 2)
 lstm_gate_terms_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
                        const int* __restrict__ lengths, const float* __restrict__ h_all,
-                       const float* __restrict__ c_all, float* __restrict__ terms, int T,
-                       int H) {
-  __shared__ __align__(16) float h_s[GT_ROWS][GT_K];  // [step][k]: a warp reads one address
-  __shared__ float w_s[GT_K][4][GT_UNITS];            // [k][gate][unit]
-  constexpr int PER = GT_ROWS / GT_TY;
-  constexpr int NT = GT_UNITS * GT_TY;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * GT_UNITS + tx;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * GT_ROWS;
-  const int len = max(0, min(lengths[b], T));
-  if (t0 >= len) return;
-  const int u0 = blockIdx.z * GT_UNITS;
+                       const float* __restrict__ c_all, float* __restrict__ terms, int B,
+                       int T, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const GateLayout L = gate_layout(H);
+  float* w_s = smem;
+  float* h_s = smem + L.h_off;
+  float* x_s = smem + L.x_off;
+  int* row_s = reinterpret_cast<int*>(smem + L.i_off);  // [2][GT_ROWS]
+  int* t_s = row_s + 2 * GT_ROWS;                       // [2][GT_ROWS]
+  int* n_s = t_s + 2 * GT_ROWS;
   const int G = 4 * H;
-  const long long row0 = static_cast<long long>(b) * T;
-  float acc[PER][4] = {};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int k0 = 0; k0 < H; k0 += GT_K) {
-    for (int i = tid; i < GT_ROWS * GT_K; i += NT) {
-      const int r = i / GT_K, kk = i % GT_K, t = t0 + r, k = k0 + kk;
-      h_s[r][kk] = t >= 1 && t < len && k < H ? h_all[(row0 + t - 1) * H + k] : 0.f;
-    }
-    for (int i = tid; i < GT_K * 4 * GT_UNITS; i += NT) {
-      const int kk = i / (4 * GT_UNITS), g = i / GT_UNITS % 4, j = i % GT_UNITS;
-      const int k = k0 + kk, u = u0 + j;
-      w_s[kk][g][j] = k < H && u < H ? whh[k * G + g * H + u] : 0.f;
-    }
-    __syncthreads();
+  if (warp == 0) {
+    const int n = warp_active_rows(lengths, B, T, lane);
+    if (lane == 0) *n_s = n;
+  }
+  __syncthreads();
+  const int n_tiles = (*n_s + GT_ROWS - 1) / GT_ROWS;
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  if (warp == 0) warp_resolve_rows(lengths, B, T, tile * GT_ROWS, row_s, t_s, lane);
+  __syncthreads();
+
+  // W_hh once per block, with the first tile's h rows: the first group.
+  // VEC: 16-byte copies (H % 4 == 0, so kp == H and every row is aligned).
+  if (VEC) {
+    for (int i = tid; i < H * G / 4; i += GT_THREADS) cp_async16(w_s + 4 * i, whh + 4 * i, true);
+  } else {
+    for (int i = tid; i < L.kp * G; i += GT_THREADS)
+      cp_async4(w_s + i, i < H * G ? whh + i : whh, i < H * G);
+  }
+  auto stage_h = [&](int buf) {
+    const int* rows = row_s + buf * GT_ROWS;
+    const int* ts = t_s + buf * GT_ROWS;
+    stage_rows<VEC>(h_s + buf * GT_ROWS * L.hs, L.hs, h_all, rows, -1, H, L.kp,
+                    [&](int r) { return rows[r] < 0 || ts[r] == 0; });
+  };
+  stage_h(0);
+  cp_async_commit();
+
+  const int u0 = (warp & 1) * (GT_UNITS / 2) + (lane & 15);
+  const int r0 = (warp >> 1) * 8 + (lane >> 4);
+  // The W_hh columns of the thread's units; a unit past H reads unit H - 1
+  // (its outputs are not stored).
+  int uc[GT_UPT];
 #pragma unroll
-    for (int kk = 0; kk < GT_K; kk += 4) {
-      float w[4][4];
+  for (int j = 0; j < GT_UPT; ++j) uc[j] = min(u0 + 16 * j, H - 1);
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int cur = it & 1, next = tile + gridDim.x;
+    const int* rows = row_s + cur * GT_ROWS;
+    // x_proj of this tile, in flight during the product.
+    stage_rows<VEC>(x_s, L.xs, xp, rows, 0, G, G, [&](int r) { return rows[r] < 0; });
+    cp_async_commit();
+    // c_t and c_{t-1} of the thread's rows and units, in flight during the
+    // product: loaded in the epilogue they cost one round trip each.
+    float c_t[GT_RPT][GT_UPT], c_p[GT_RPT][GT_UPT];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+    for (int i = 0; i < GT_RPT; ++i) {
+      const long long n = rows[r0 + 2 * i];
+      const bool prev = n >= 0 && t_s[cur * GT_ROWS + r0 + 2 * i] > 0;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) w[q][g] = w_s[kk + q][g][tx];
+      for (int j = 0; j < GT_UPT; ++j) {
+        const int u = u0 + 16 * j;
+        const bool ok = n >= 0 && u < H;
+        c_t[i][j] = ok ? c_all[n * H + u] : 0.f;
+        c_p[i][j] = ok && prev ? c_all[(n - 1) * H + u] : 0.f;
       }
+    }
+    if (warp == 0 && next < n_tiles)
+      warp_resolve_rows(lengths, B, T, next * GT_ROWS, row_s + (cur ^ 1) * GT_ROWS,
+                        t_s + (cur ^ 1) * GT_ROWS, lane);
+    cp_async_wait_one();  // W_hh and this tile's h
+    __syncthreads();
+
+    float acc[GT_RPT][GT_UPT][4];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const float4 hv = *reinterpret_cast<const float4*>(&h_s[ty + GT_TY * i][kk]);
+    for (int i = 0; i < GT_RPT; ++i)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          acc[i][g] = fmaf(hv.x, w[0][g], acc[i][g]);
-          acc[i][g] = fmaf(hv.y, w[1][g], acc[i][g]);
-          acc[i][g] = fmaf(hv.z, w[2][g], acc[i][g]);
-          acc[i][g] = fmaf(hv.w, w[3][g], acc[i][g]);
+      for (int j = 0; j < GT_UPT; ++j)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[i][j][g] = 0.f;
+    const float* hb = h_s + cur * GT_ROWS * L.hs + r0 * L.hs;
+    for (int k = 0; k < L.kp; k += 4) {
+      float4 hv[GT_RPT];
+#pragma unroll
+      for (int i = 0; i < GT_RPT; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(hb + 2 * i * L.hs + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // Lanes of a half-warp read 16 consecutive units of one gate: no
+        // bank conflicts; the two half-warps read the same words.
+        const float* wr = w_s + (k + kk) * G;
+        float wv[GT_UPT][4];
+#pragma unroll
+        for (int j = 0; j < GT_UPT; ++j)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) wv[j][g] = wr[g * H + uc[j]];
+#pragma unroll
+        for (int i = 0; i < GT_RPT; ++i) {
+          const float hk = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+          for (int j = 0; j < GT_UPT; ++j)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) acc[i][j][g] = fmaf(hk, wv[j][g], acc[i][j][g]);
         }
       }
     }
+    __syncthreads();  // the next tile's rows are resolved; h buffer cur ^ 1 is free
+    if (next < n_tiles) stage_h(cur ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();  // this tile's x_proj
     __syncthreads();
-  }
 
-  const int u = u0 + tx;
-  if (u >= H) return;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int t = t0 + ty + GT_TY * i;
-    if (t >= len) continue;
-    const long long n = row0 + t;
-    const float* x = xp + n * G + u;
-    const float ig = sigmoid(acc[i][0] + x[0]);
-    const float fg = sigmoid(acc[i][1] + x[H]);
-    const float gg = tanhf(acc[i][2] + x[2 * H]);
-    const float og = sigmoid(acc[i][3] + x[3 * H]);
-    const float tc = tanhf(c_all[n * H + u]);
-    const float cp = t > 0 ? c_all[(n - 1) * H + u] : 0.f;
-    float* out = terms + n * 6 * H + u;
-    out[0] = gg * ig * (1.f - ig);
-    out[H] = cp * fg * (1.f - fg);
-    out[2 * H] = ig * (1.f - gg * gg);
-    out[3 * H] = tc * og * (1.f - og);
-    out[4 * H] = og * (1.f - tc * tc);
-    out[5 * H] = fg;
+    for (int i = 0; i < GT_RPT; ++i) {
+      const int r = r0 + 2 * i;
+      const long long n = rows[r];
+      if (n < 0) continue;
+      const float* xr = x_s + r * L.xs;
+#pragma unroll
+      for (int j = 0; j < GT_UPT; ++j) {
+        const int u = u0 + 16 * j;
+        if (u >= H) continue;
+        const float ig = sigmoid(acc[i][j][0] + xr[u]);
+        const float fg = sigmoid(acc[i][j][1] + xr[H + u]);
+        const float gg = tanhf(acc[i][j][2] + xr[2 * H + u]);
+        const float og = sigmoid(acc[i][j][3] + xr[3 * H + u]);
+        const float tc = tanhf(c_t[i][j]);
+        const float cp = c_p[i][j];
+        float* out = terms + n * 6 * H + u;
+        out[0] = gg * ig * (1.f - ig);
+        out[H] = cp * fg * (1.f - fg);
+        out[2 * H] = ig * (1.f - gg * gg);
+        out[3 * H] = tc * og * (1.f - og);
+        out[4 * H] = og * (1.f - tc * tc);
+        out[5 * H] = fg;
+      }
+    }
+    __syncthreads();  // x_s and this tile's rows are free
   }
 }
 
@@ -418,22 +633,6 @@ constexpr int DW_COLS = 128;     // block tile: gate columns
 constexpr int DW_CHUNK = 16;     // rows of h and dx per shared-memory stage
 constexpr int DW_THREADS = 256;  // 16 x 16: 6 units x 8 gate columns a thread
 
-__device__ __forceinline__ void dw_cp_async16(float* smem, const float* src, bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void dw_cp_async4(float* smem, const float* src, bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void dw_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void dw_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
 // Row n = b * T + t of dW's product carries h_prev[n] = h_all[n - 1] for
 // 1 <= t < length[b], and zero elsewhere.
 __device__ __forceinline__ bool dw_row_active(int n, int T, const int* lengths) {
@@ -486,14 +685,14 @@ lstm_dw_partial_kernel(const float* __restrict__ h_all, const float* __restrict_
       const int r = i / (DW_COLS / 4), j = j0 + (i % (DW_COLS / 4)) * 4;
       const int n = n0 + r;
       const bool ok = n < n_total && j < G;
-      dw_cp_async16(&d_s[buf][r][j - j0], ok ? dxp + static_cast<size_t>(n) * G + j : dxp, ok);
+      cp_async16(&d_s[buf][r][j - j0], ok ? dxp + static_cast<size_t>(n) * G + j : dxp, ok);
     }
     if (VEC_H) {
       for (int i = tid; i < DW_CHUNK * DW_UNITS / 4; i += DW_THREADS) {
         const int r = i / (DW_UNITS / 4), k = k0 + (i % (DW_UNITS / 4)) * 4;
         const int n = n0 + r;
         const bool ok = n < n_total && k < H && dw_row_active(n, T, lengths);
-        dw_cp_async16(&h_s[buf][r][k - k0],
+        cp_async16(&h_s[buf][r][k - k0],
                       ok ? h_all + static_cast<size_t>(n - 1) * H + k : h_all, ok);
       }
     } else {
@@ -501,7 +700,7 @@ lstm_dw_partial_kernel(const float* __restrict__ h_all, const float* __restrict_
         const int r = i / DW_UNITS, k = k0 + i % DW_UNITS;
         const int n = n0 + r;
         const bool ok = n < n_total && k < H && dw_row_active(n, T, lengths);
-        dw_cp_async4(&h_s[buf][r][k - k0],
+        cp_async4(&h_s[buf][r][k - k0],
                      ok ? h_all + static_cast<size_t>(n - 1) * H + k : h_all, ok);
       }
     }
@@ -510,13 +709,13 @@ lstm_dw_partial_kernel(const float* __restrict__ h_all, const float* __restrict_
   float acc[6][8] = {};
   int c = dw_next_active(c_begin, c_end, n_total, T, lengths);
   if (c < c_end) stage(c, 0);
-  dw_commit();
+  cp_async_commit();
   int buf = 0;
   while (c < c_end) {
     const int next = dw_next_active(c + 1, c_end, n_total, T, lengths);
     if (next < c_end) stage(next, buf ^ 1);
-    dw_commit();
-    dw_wait_one();
+    cp_async_commit();
+    cp_async_wait_one();
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < DW_CHUNK; ++r) {
@@ -598,9 +797,10 @@ cudaError_t launch_forward(const void* x_proj, const void* w_hh, const void* len
 
 }  // namespace
 
-// Each entry point returns the launch's cudaError_t.  The forward and the
-// backward's recurrence take 1 <= H <= 96 (W_hh in registers: 4 * ceil(H / 16)
-// * 4 floats a lane); the gate terms take any H >= 1.
+// Each entry point returns the launch's cudaError_t.  The forward, the gate
+// terms and the backward's recurrence take 1 <= H <= 96 (W_hh in registers:
+// 4 * ceil(H / 16) * 4 floats a lane; or, for the gate terms, all of it in a
+// block's shared memory).
 
 extern "C" int maunet_lstm_last_hidden(const void* x_proj, const void* w_hh,
                                        const void* lengths, void* out, int B,
@@ -623,12 +823,26 @@ extern "C" int maunet_lstm_gate_terms(const void* x_proj, const void* w_hh,
                                       const void* c_all, void* terms, int B, int T,
                                       int H, void* stream) {
   if (B == 0 || T == 0) return static_cast<int>(cudaSuccess);
-  if (H < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + GT_ROWS - 1) / GT_ROWS, B, (H + GT_UNITS - 1) / GT_UNITS);
-  lstm_gate_terms_kernel<<<grid, dim3(GT_UNITS, GT_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+  if (H < 1 || H > kFwdMaxHidden || B < 0 || T < 0 ||
+      static_cast<long long>(B) * T >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GateLayout L = gate_layout(H);
+  const long long tiles = (static_cast<long long>(B) * T + GT_ROWS - 1) / GT_ROWS;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(x_proj) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(h_all) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w_hh) % 16 == 0;
+  auto kernel = vec ? lstm_gate_terms_kernel<true> : lstm_gate_terms_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, GT_THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x_proj), static_cast<const float*>(w_hh),
       static_cast<const int*>(lengths), static_cast<const float*>(h_all),
-      static_cast<const float*>(c_all), static_cast<float*>(terms), T, H);
+      static_cast<const float*>(c_all), static_cast<float*>(terms), B, T, H);
   return static_cast<int>(cudaGetLastError());
 }
 

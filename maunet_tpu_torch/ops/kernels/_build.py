@@ -88,12 +88,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+_FUNCTIONS: dict[tuple, ctypes._CFuncPtr] = {}
+
+
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` with its argument types declared.  Every
-    entry point returns a cudaError_t as an int."""
-    fn = getattr(_library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point ``name`` with its argument types declared, looked
+    up once.  Every entry point returns a cudaError_t as an int."""
+    key = (name, *argtypes)
+    fn = _FUNCTIONS.get(key)
+    if fn is None:
+        fn = getattr(_library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[key] = fn
     return fn
 
 
@@ -119,9 +126,11 @@ def on_cpu(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
-def require(cond: bool, what: str, msg: str) -> None:
+def require(cond: bool, what: str, msg) -> None:
+    """Raise ValueError("what: msg") unless ``cond``; ``msg`` may be a
+    function that formats the message, called only then."""
     if not cond:
-        raise ValueError(f"{what}: {msg}")
+        raise ValueError(f"{what}: {msg() if callable(msg) else msg}")
 
 
 def require_no_grad(what: str, *tensors: torch.Tensor | None) -> None:

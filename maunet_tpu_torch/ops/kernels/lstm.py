@@ -24,7 +24,8 @@ from maunet_tpu_torch.ops.kernels import _build
 
 # The forward and the backward's recurrence hold W_hh in registers (4 * KS
 # floats a lane, KS = 4 * ceil(H / 16)), which caps H at 96; in shared memory
-# they keep only h, or dgates, double-buffered.
+# they keep only h, or dgates, double-buffered.  The gate terms keep all of
+# W_hh in a block's shared memory, which holds it up to the same H.
 FWD_MAX_HIDDEN = 96
 # dW's kernel: a block computes a 96-unit x 128-column tile of dW over one
 # slice of the B*T rows, staged 16 rows (a chunk) at a time; two blocks fit
@@ -224,8 +225,9 @@ def _check_lstm_args(what: str, x_proj, w_hh, lengths, extra=(),
         _build.require(arr.is_contiguous(), what, f"{name} must be contiguous")
     if max_hidden is not None:
         _build.require(1 <= hidden <= max_hidden, what,
-                       f"hidden size {hidden} is outside 1..{max_hidden}: the kernel "
-                       f"holds W_hh in registers, 4 * ceil(H / 16) * 4 floats a lane")
+                       f"hidden size {hidden} is outside 1..{max_hidden}: the kernels "
+                       f"hold W_hh in registers, 4 * ceil(H / 16) * 4 floats a lane, "
+                       f"or (the gate terms) all of it in one block's shared memory")
     return b, t, hidden
 
 
@@ -274,8 +276,9 @@ def lstm_gate_terms(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     c_all: torch.Tensor) -> torch.Tensor:
     """F's first launch: the gate terms (B, T, 6H) f32 of
     :func:`lstm_gate_terms_plain` for every step at once.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel, which leaves the
-    rows t >= length unwritten (the recurrence never reads them)."""
+    the plain version; a CUDA tensor launches the kernel, which takes
+    1 <= H <= 96 (W_hh whole in a block's shared memory) and leaves the rows
+    t >= length unwritten (the recurrence never reads them)."""
     what = "lstm_gate_terms"
     if _build.on_cpu(x_proj, what):
         return lstm_gate_terms_plain(x_proj, w_hh, lengths, h_all, c_all)
@@ -283,7 +286,8 @@ def lstm_gate_terms(x_proj: torch.Tensor, w_hh: torch.Tensor,
     hidden = four_h // 4
     _check_lstm_args(what, x_proj, w_hh, lengths,
                      extra=(("h_all", h_all, (b, t, hidden)),
-                            ("c_all", c_all, (b, t, hidden))))
+                            ("c_all", c_all, (b, t, hidden))),
+                     max_hidden=FWD_MAX_HIDDEN)
     return _gate_terms_launch(x_proj, w_hh, lengths, h_all, c_all)
 
 

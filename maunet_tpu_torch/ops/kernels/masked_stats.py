@@ -21,10 +21,10 @@ from maunet_tpu_torch.ops.kernels import _build
 
 NUM_CLASSES = 9
 MAX_CHANNELS = 4
-# Pixels of one sample that one block of the first launch owns (kChunk in
-# csrc/masked_stats.cu, which refuses a partial buffer sized for another).
-CHUNK_PIXELS = 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# maunet_masked_class_sums(pred, target, dw, out, B, hw, C, dtype, stream)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
 
 Sums = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -43,51 +43,56 @@ def masked_class_sums_plain(pred: torch.Tensor, target: torch.Tensor,
     return sum_abs, sum_sq, counts
 
 
+def split_sums(out: torch.Tensor, c: int) -> Sums:
+    """(sum_abs (B, C, 9), sum_sq (B, C, 9), counts (B, 9)) as views of one
+    (B, 9 * (2C + 1)) row per sample: the |err| sums [c][k], then the err^2
+    sums [c][k], then the counts [k], as the kernel writes them."""
+    b, nv = out.shape
+    k, at = NUM_CLASSES * c, out.storage_offset()
+    # as_strided: three views in three calls, the fewest host operations
+    return (out.as_strided((b, c, NUM_CLASSES), (nv, NUM_CLASSES, 1), at),
+            out.as_strided((b, c, NUM_CLASSES), (nv, NUM_CLASSES, 1), at + k),
+            out.as_strided((b, NUM_CLASSES), (nv, 1), at + 2 * k))
+
+
 def masked_class_sums(pred: torch.Tensor, target: torch.Tensor,
                       dw_map: torch.Tensor) -> Sums:
     """(B, H, W, C) pred and target of one float dtype + (B, H, W) int32
     class map -> (sum_abs (B, C, 9), sum_sq (B, C, 9), counts (B, 9)), f32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-    which takes f32, bf16 or f16 inputs of any H and W with 1-4 channels.
+    which takes f32, bf16 or f16 inputs of any H and W with 1-4 channels and
+    writes one (B, 9 * (2C + 1)) tensor, of which the three are views
+    (:func:`split_sums`).
     """
     what = "masked_class_sums"
     if _build.on_cpu(pred, what):
         return masked_class_sums_plain(pred, target, dw_map)
     _build.require_no_grad(what, pred, target)
     _build.require(pred.dim() == 4 and pred.shape == target.shape, what,
-                   f"pred {tuple(pred.shape)} and target {tuple(target.shape)} "
+                   lambda: f"pred {tuple(pred.shape)} and target {tuple(target.shape)} "
                    "must be one (B, H, W, C) shape")
     b, h, w, c = pred.shape
     dev = pred.device
     _build.require(pred.dtype in _DTYPES and target.dtype == pred.dtype, what,
-                   f"pred and target must share f32, bf16 or f16, got "
+                   lambda: f"pred and target must share f32, bf16 or f16, got "
                    f"{pred.dtype} and {target.dtype}")
     _build.require(1 <= c <= MAX_CHANNELS, what,
-                   f"takes 1-{MAX_CHANNELS} channels, got {c}")
-    _build.require(tuple(dw_map.shape) == (b, h, w) and dw_map.dtype == torch.int32,
-                   what, f"dw_map must be int32 {(b, h, w)}, got {dw_map.dtype} "
+                   lambda: f"takes 1-{MAX_CHANNELS} channels, got {c}")
+    _build.require(dw_map.shape == (b, h, w) and dw_map.dtype == torch.int32,
+                   what, lambda: f"dw_map must be int32 {(b, h, w)}, got {dw_map.dtype} "
                    f"{tuple(dw_map.shape)}")
     _build.require(target.device == dev and dw_map.device == dev, what,
-                   f"every input must lie on {dev}")
+                   lambda: f"every input must lie on {dev}")
     _build.require(pred.is_contiguous() and target.is_contiguous()
                    and dw_map.is_contiguous(), what, "inputs must be contiguous")
-    _build.require(b <= 65535 and h * w > 0, what, f"batch {b} of {h}x{w} pixels")
-    nchunks = -(-(h * w) // CHUNK_PIXELS)
-    nv = NUM_CLASSES * (2 * c + 1)
-    partial = torch.empty((b, nchunks, nv), dtype=torch.float32, device=dev)
-    sum_abs = torch.empty((b, c, NUM_CLASSES), dtype=torch.float32, device=dev)
-    sum_sq = torch.empty_like(sum_abs)
-    counts = torch.empty((b, NUM_CLASSES), dtype=torch.float32, device=dev)
-    fn = _build.function("maunet_masked_class_sums",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong]
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    _build.check(fn(pred.data_ptr(), target.data_ptr(), dw_map.data_ptr(),
-                    partial.data_ptr(), sum_abs.data_ptr(), sum_sq.data_ptr(),
-                    counts.data_ptr(), b, h * w, nchunks, c, _DTYPES[pred.dtype],
-                    _build.stream_of(pred)), what)
+    _build.require(b <= 65535 and h * w > 0, what, lambda: f"batch {b} of {h}x{w} pixels")
+    out = torch.empty((b, NUM_CLASSES * (2 * c + 1)), dtype=torch.float32, device=dev)
+    _build.check(_build.function("maunet_masked_class_sums", _ARGTYPES)(
+        pred.data_ptr(), target.data_ptr(), dw_map.data_ptr(), out.data_ptr(), b, h * w, c,
+        _DTYPES[pred.dtype], _build.stream_of(pred)), what)
     masked_class_sums.launches += 1
-    return sum_abs, sum_sq, counts
+    return split_sums(out, c)
 
 
 masked_class_sums.launches = 0

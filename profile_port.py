@@ -2,14 +2,16 @@
 """Profile the PyTorch port on one CUDA card: the U-Net's serving forward,
 with ``--train`` one train step, with ``--eval`` one evaluation batch of
 each model family, with ``--conv`` the fused 3x3 conv kernel alone, with
-``--lstm`` the LSTM kernels alone, or with ``--resize`` the resize kernel alone.
+``--lstm`` the LSTM kernels alone, with ``--resize`` the resize kernel alone,
+or with ``--masked`` the masked class sums kernel alone.
 
     python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
     python3 profile_port.py --eval [--trace PATH]    # default build/port_eval_trace.json
     python3 profile_port.py --conv                   # no trace
-    python3 profile_port.py --lstm                   # no trace
-    python3 profile_port.py --resize [--parent PATH] # no trace; PATH: another resize_pack.cu
+    python3 profile_port.py --lstm [--parent PATH ...]   # no trace; PATH: other lstm.cu files
+    python3 profile_port.py --resize [--parent PATH]     # no trace; PATH: another resize_pack.cu
+    python3 profile_port.py --masked [--parent PATH ...] # no trace; PATH: other masked_stats.cu files
 
 The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
 (seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
@@ -70,7 +72,16 @@ the training batch and at B = 1 it also prints dW's device time
 (``lstm_dw``: the split-row product and its reduce; as CUDA events around
 ten calls and as the summed kernel durations of a profiler trace) beside its
 plain version and the bare cuBLAS product of the pre-masked ``h_prev^T`` and
-``dx_proj`` (f32, TF32 off).
+``dx_proj`` (f32, TF32 off).  At each of the three batches it prints F's two
+launches as kernel time (the summed kernel durations of a profiler trace),
+the gate terms beside the bare cuBLAS product of their pre-activations
+(``torch.addmm`` of the x_proj rows and h_(t-1) W_hh over the rows t <
+length: the product alone, without the epilogue) and their bound.  With
+``--parent PATH ...``, other ``lstm.cu`` files, each built into a library of
+its own, their ``maunet_lstm_gate_terms`` (called with the arguments its
+signature names) must give the tree's gate terms bit for bit where t <
+length at the three batches and at ``LSTM_EDGE_CASES``, and all are timed in
+turns: the parents in order, the tree twice, the parents in reverse.
 
 The ``--resize`` mode compiles ``csrc/resize_pack.cu`` alone with ``-Xptxas
 -v`` and prints each instantiation's registers and spills; then at each of
@@ -92,6 +103,21 @@ requires the same bits as the tree's kernel at all seventeen shapes of
 ``RESIZE_CASES``, and times the two in turns (parent, tree, tree, parent).
 To compare with the last commit, write its file first: ``git show
 HEAD:maunet_tpu_torch/csrc/resize_pack.cu > build/resize_pack_parent.cu``.
+
+The ``--masked`` mode compiles ``csrc/masked_stats.cu`` alone with
+``-Xptxas -v`` and prints each instantiation's registers and spills; then at
+every shape of ``chip_smoke.MASKED_CASES`` holds the kernel against its plain
+version and against the ``torch.bincount`` composition of the same three
+outputs (several launches, not one call: a yardstick only), and prints its
+kernel time (trace) and events around ten calls beside a read floor
+(``torch.sum`` over a flat f32 tensor of exactly the kernel's input bytes,
+one library launch reading what it reads), the composition and the bytes
+bound, and the host time of one call through the wrapper.  With ``--parent
+PATH ...``, other ``masked_stats.cu`` files (either signature: one output row
+per sample, or the two-launch one with its scratch), each built into a
+library of its own, are held to the tree's kernel within the check's
+tolerance (they may sum in other orders) and timed in turns with it, as with
+``--lstm``.
 
 The busy time is read from the trace's kernel intervals, not from
 ``key_averages()``: there a kernel's time is counted both on its own row and
@@ -327,14 +353,19 @@ def conv_kernel_label(entry: str) -> str:
 
 
 def lstm_kernel_label(entry: str) -> str:
-    """``lstm_last_hidden_kernel<stash, KS>``, ``lstm_backward_kernel<KS>``
-    or the kernel's plain name, from its mangled name."""
+    """``lstm_last_hidden_kernel<stash, KS>``, ``lstm_backward_kernel<KS>``,
+    another kernel with its one bool argument (``lstm_gate_terms_kernel<VEC>``,
+    ``lstm_dw_partial_kernel<VEC_H>``) or the kernel's plain name, from its
+    mangled name."""
     m = re.search(r"lstm_last_hidden_kernelILb(\d)ELi(\d+)E", entry)
     if m:
         return f"lstm_last_hidden_kernel<{'true' if m.group(1) == '1' else 'false'}, KS = {m.group(2)}>"
     m = re.search(r"lstm_backward_kernelILi(\d+)E", entry)
     if m:
         return f"lstm_backward_kernel<KS = {m.group(1)}>"
+    m = re.search(r"(lstm_\w+?_kernel)ILb(\d)E", entry)
+    if m:
+        return f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
     m = re.search(r"(lstm_\w+?_kernel)", entry)
     return m.group(1) if m else entry
 
@@ -347,8 +378,10 @@ def device_ms(fn, calls: int = 10) -> float:
     return cs.cuda_ms(lambda: [fn() for _ in range(calls)], reps=5) / calls
 
 
-def lstm_checks(dev: torch.device) -> None:
-    """B, E and F against their plain versions at ``chip_smoke.LSTM_EDGE_CASES``."""
+def lstm_checks(dev: torch.device, parents: dict | None = None) -> None:
+    """B, E and F against their plain versions at ``chip_smoke.LSTM_EDGE_CASES``;
+    F's gate terms also bit for bit against each of ``parents`` (name ->
+    ``parent_gate_terms``)."""
     import chip_smoke as cs
 
     from maunet_tpu_torch.ops.kernels import lstm
@@ -364,6 +397,10 @@ def lstm_checks(dev: torch.device) -> None:
                     *lstm.lstm_forward_stash_plain(x_proj, w_hh, lengths))
             dx = lstm.lstm_backward(x_proj, w_hh, lengths, *want[2:], grad)
             dx_want = lstm.lstm_backward_plain(x_proj, w_hh, lengths, *want[2:], grad)[0]
+            for name, parent in (parents or {}).items():
+                same_gate_bits(f"H = {hidden}, T = {t}, lengths {lens}", lengths,
+                               lstm.lstm_gate_terms(x_proj, w_hh, lengths, *want[2:]),
+                               parent(x_proj, w_hh, lengths, *want[2:]), name)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         f_err = float((dx - dx_want).abs().max())
         ok = (err <= 1e-4 and all(bool(torch.isfinite(a).all()) for a in (*got, dx))
@@ -382,9 +419,100 @@ def sm_clock_ghz() -> float:
     return float(out.strip().splitlines()[0]) / 1e3
 
 
-def lstm_times(dev: torch.device) -> None:
+def gate_arguments(params, x_proj, w_hh, lengths, h_all, c_all, terms, stream: int) -> list:
+    """The values for ``params`` of one ``maunet_lstm_gate_terms`` launch."""
+    b, t, four_h = x_proj.shape
+    values = {"x_proj": x_proj.data_ptr(), "w_hh": w_hh.data_ptr(),
+              "lengths": lengths.data_ptr(), "h_all": h_all.data_ptr(),
+              "c_all": c_all.data_ptr(), "terms": terms.data_ptr(), "B": b, "T": t,
+              "H": four_h // 4, "stream": stream}
+    return named_arguments("maunet_lstm_gate_terms", params, values)
+
+
+def parent_gate_terms(path: str, name: str | None = None):
+    """Compile another ``lstm.cu`` into a library of its own and return a
+    function (x_proj, w_hh, lengths, h_all, c_all) -> terms that launches its
+    gate-terms kernel."""
+    from maunet_tpu_torch.ops.kernels import _build
+
+    fn, params = parent_entry(path, "maunet_lstm_gate_terms", name)
+
+    def launch(x_proj, w_hh, lengths, h_all, c_all):
+        b, t, four_h = x_proj.shape
+        terms = torch.empty((b, t, 6 * (four_h // 4)), dtype=torch.float32,
+                            device=x_proj.device)
+        code = fn(*gate_arguments(params, x_proj, w_hh, lengths, h_all, c_all, terms,
+                                  _build.stream_of(x_proj)))
+        if code != 0:
+            raise RuntimeError(f"parent lstm gate terms: CUDA error {code}")
+        return terms
+
+    return launch
+
+
+def same_gate_bits(label: str, lengths, got, want, name: str = "the parent") -> None:
+    """Require the same bits of two (B, T, 6H) gate terms at t < length,
+    the rows the kernels write: the tree's (``got``) and ``name``'s."""
+    active = (torch.arange(got.shape[1], device=got.device)[None, :]
+              < lengths[:, None])[..., None]
+    got, want = torch.where(active, got, 0.0), torch.where(active, want, 0.0)
+    same = torch.equal(got, want)
+    print(f"bits gate terms {label}: " + (f"the same as {name}'s at t < length" if same
+                                          else f"DIFFER from {name}'s (max |diff| "
+                                               f"{float((got - want).abs().max()):.3e})"))
+    if not same:
+        raise AssertionError(f"gate terms {label}: the tree's kernel and {name}'s "
+                             "give other bits")
+
+
+def gate_times(label: str, x_proj, w_hh, lengths, h_all, c_all, terms, grad,
+               parents: dict | None = None) -> None:
+    """F's two launches as kernel time (trace), the gate terms beside the
+    bare cuBLAS product of their pre-activations and their bound, and in
+    turns with each of ``parents`` (name -> ``parent_gate_terms``): the
+    parents in order, the tree twice, the parents in reverse."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import lstm
+
+    b, t, gates = x_proj.shape
+    hidden = gates // 4
+    active = torch.arange(t, device=x_proj.device)[None, :] < lengths[:, None]
+    steps = int(active.sum())
+    h_prev = torch.cat([torch.zeros_like(h_all[:, :1]), h_all[:, :-1]], 1)
+    x_rows, h_rows = x_proj[active].contiguous(), h_prev[active].contiguous()
+    calls = {"tree": lambda: lstm.lstm_gate_terms(x_proj, w_hh, lengths, h_all, c_all),
+             "recurrence": lambda: lstm._backward_recur(terms, w_hh, lengths, grad),
+             "cuBLAS": lambda: torch.addmm(x_rows, h_rows, w_hh)}
+    parents = parents or {}
+    for name, parent in parents.items():
+        same_gate_bits(label, lengths, calls["tree"](),
+                       parent(x_proj, w_hh, lengths, h_all, c_all), name)
+        calls[name] = (lambda p: lambda: p(x_proj, w_hh, lengths, h_all, c_all))(parent)
+    order = [*parents, "tree", "tree", *reversed(parents)]
+    times: dict[str, list[float]] = {}
+    for key in order + ["cuBLAS", "recurrence"]:
+        times.setdefault(key, []).append(kernel_ms(calls[key]))
+    nbytes = (steps * (gates + 2 * hidden + 6 * hidden)) * 4 + hidden * gates * 4
+    flops = steps * (2 * hidden * gates + 20 * gates)
+    bytes_ms, ops_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3, flops / cs.PEAK_FLOPS["f32"] * 1e3
+    print(f"gate terms {label}, {steps} rows t < length: tree "
+          + " and ".join(f"{v:.4f}" for v in times["tree"])
+          + ("" if not parents else
+             " (" + "; ".join(f"{n} " + " and ".join(f"{v:.4f}" for v in times[n])
+                             for n in parents)
+             + "; in turns " + ", ".join(order) + ")")
+          + f" ms of kernel time (trace); cuBLAS addmm of the x_proj rows and h_(t-1) W_hh, "
+          f"the product alone, without the epilogue, {times['cuBLAS'][0]:.4f}; bound "
+          f"{max(bytes_ms, ops_ms):.4f} ({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+          f"bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); the recurrence "
+          f"{times['recurrence'][0]:.4f} ms of kernel time")
+
+
+def lstm_times(dev: torch.device, parents: dict | None = None) -> None:
     """B, E and F at the three batches of ``chip_smoke.py``, beside cuDNN and
-    the serial chain's bound; dW at the training batch and at B = 1."""
+    the serial chain's bound, and F's launches as kernel time (``gate_times``);
+    dW at the training batch and at B = 1."""
     import chip_smoke as cs
 
     from maunet_tpu_torch.ops.kernels import lstm
@@ -418,6 +546,8 @@ def lstm_times(dev: torch.device) -> None:
               f"forward {cudnn_ms:.4f}, forward and backward {cudnn_bwd_ms:.4f}; serial "
               f"chain bound of B, E and F {chain_ms:.4f} ({max(lens)} steps x "
               f"{hidden * 4 * hidden // 128} cycles at {clock:.3f} GHz)")
+        with torch.no_grad():
+            gate_times(label, x_proj, w_hh, lengths, h_all, c_all, terms, grad, parents)
         if label == "training":
             dw_times(b, hidden, lens, lengths, h_all,
                      lstm.lstm_backward(x_proj, w_hh, lengths, h_all, c_all, grad))
@@ -467,13 +597,39 @@ def resize_kernel_label(entry: str) -> str:
             f"V = {m.group(2)}>")
 
 
+def entry_params(source: str, entry: str) -> list[tuple[str, object]]:
+    """The parameters of the C entry point ``entry`` in a ``csrc`` source,
+    in order, as (name, ctypes type): ``c_void_p`` for a pointer,
+    ``c_longlong`` for a ``long long``, else ``c_int``."""
+    import ctypes
+
+    m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', source)
+    if not m:
+        raise ValueError(f"no {entry} entry point in the source")
+    params = []
+    for p in m.group(1).split(","):
+        kind = (ctypes.c_void_p if "*" in p else
+                ctypes.c_longlong if "long long" in p else ctypes.c_int)
+        params.append((re.split(r"[\s*]+", p.strip())[-1], kind))
+    return params
+
+
+def named_arguments(entry: str, params, values: dict) -> list:
+    """``values`` in the order of ``params`` (``entry_params``); a parameter
+    that ``values`` does not name raises."""
+    unknown = [name for name, _ in params if name not in values]
+    if unknown:
+        raise ValueError(f"unknown parameters of {entry}: {unknown}")
+    return [values[name] for name, _ in params]
+
+
 def resize_entry_params(source: str) -> list[tuple[str, bool]]:
     """The parameters of ``maunet_resize_align_corners`` in a
     ``resize_pack.cu`` source, in order, as (name, is a pointer)."""
-    m = re.search(r'extern "C" int maunet_resize_align_corners\(([^)]*)\)', source)
-    if not m:
-        raise ValueError("no maunet_resize_align_corners entry point in the source")
-    return [(re.split(r"[\s*]+", p.strip())[-1], "*" in p) for p in m.group(1).split(",")]
+    import ctypes
+
+    return [(name, kind is ctypes.c_void_p)
+            for name, kind in entry_params(source, "maunet_resize_align_corners")]
 
 
 def resize_arguments(params: list[tuple[str, bool]], x: torch.Tensor, y: torch.Tensor,
@@ -488,10 +644,38 @@ def resize_arguments(params: list[tuple[str, bool]], x: torch.Tensor, y: torch.T
     values = {"x": x.data_ptr(), "y": y.data_ptr(), "dtype": resize_pack._DTYPES[x.dtype],
               "B": b, "h": h, "w": w, "C": c, "oh": oh, "ow": ow, "rows": rows,
               "stream": stream}
-    unknown = [name for name, _ in params if name not in values]
-    if unknown:
-        raise ValueError(f"unknown parameters of maunet_resize_align_corners: {unknown}")
-    return [values[name] for name, _ in params]
+    return named_arguments("maunet_resize_align_corners", params, values)
+
+
+def parent_entry(path: str, entry: str, stem: str | None = None):
+    """Compile ``path``, another version of a ``csrc`` source, into a
+    library of its own (named by ``stem``, by default the file's) and return
+    (its entry point ``entry`` with argument types declared, the entry's
+    parameters as ``entry_params`` gives them).  ctypes loads the library
+    with ``RTLD_LOCAL``, so its names do not clash with the tree's library."""
+    import ctypes
+
+    from maunet_tpu_torch.ops.kernels import _build
+
+    with open(path) as f:
+        params = entry_params(f.read(), entry)
+    stem = stem or os.path.splitext(os.path.basename(path))[0]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"parent_{stem}")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, f"libparent_{stem}.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", path, "-o", lib_path],
+                   check=True)
+    fn = getattr(ctypes.CDLL(lib_path, mode=os.RTLD_LOCAL), entry)
+    fn.argtypes = [kind for _, kind in params]
+    fn.restype = ctypes.c_int
+    return fn, params
+
+
+def parent_names(paths: list[str]) -> list[str]:
+    """A distinct name for each parent file: its stem, with the file's
+    position appended where two stems are alike."""
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    return [s if stems.count(s) == 1 else f"{s}_{i}" for i, s in enumerate(stems)]
 
 
 def parent_resize(path: str, dev: torch.device):
@@ -501,16 +685,8 @@ def parent_resize(path: str, dev: torch.device):
 
     from maunet_tpu_torch.ops.kernels import _build, resize_pack
 
-    with open(path) as f:
-        params = resize_entry_params(f.read())
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent_resize")
-    os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, "libparent_resize.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", path, "-o", lib_path],
-                   check=True)
-    fn = ctypes.CDLL(lib_path, mode=os.RTLD_LOCAL).maunet_resize_align_corners
-    fn.argtypes = [ctypes.c_void_p if ptr else ctypes.c_int for _, ptr in params]
-    fn.restype = ctypes.c_int
+    fn, params = parent_entry(path, "maunet_resize_align_corners")
+    params = [(name, kind is ctypes.c_void_p) for name, kind in params]
 
     def launch(x, out_hw):
         y = torch.empty((x.shape[0], *out_hw, x.shape[3]), dtype=x.dtype, device=dev)
@@ -607,6 +783,162 @@ def resize_profile(dev: torch.device, parent_path: str | None) -> None:
             "calls: " + ", ".join(f"{names[k]} {total[k][0]:.4f}" for k in names if k in total))
 
 
+def masked_kernel_label(entry: str) -> str:
+    """``masked_stats_*kernel<T, C[, VEC]>`` or the kernel's plain name,
+    from its mangled name."""
+    m = re.search(r"(masked_stats_\w*kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)E(?:Lb(\d)E)?",
+                  entry)
+    if not m:
+        m = re.search(r"(masked_stats_\w*kernel)", entry)
+        return m.group(1) if m else entry
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}[m.group(2)]
+    vec = "" if m.group(4) is None else f", VEC = {'true' if m.group(4) == '1' else 'false'}"
+    return f"{m.group(1)}<{dtype}, C = {m.group(3)}{vec}>"
+
+
+# kChunk of masked_stats.cu while D was two launches: the pixels of one
+# sample a block of the first launch owned; its entry point takes scratch
+# sized by it and refuses another size.
+TWO_LAUNCH_CHUNK = 2048
+
+
+def masked_outputs(params, pred: torch.Tensor):
+    """The buffers that a ``maunet_masked_class_sums`` with ``params``
+    writes, for ``pred``: (pointers by parameter name, (sum_abs, sum_sq,
+    counts)).  One (B, 9 (2C + 1)) row per sample where the entry point takes
+    ``out``; else the two-launch signature's scratch and three outputs."""
+    from maunet_tpu_torch.ops.kernels import masked_stats
+
+    b, h, w, c = pred.shape
+    nv = masked_stats.NUM_CLASSES * (2 * c + 1)
+    f32 = dict(dtype=torch.float32, device=pred.device)
+    if "out" in {name for name, _ in params}:
+        out = torch.empty((b, nv), **f32)
+        return {"out": out}, masked_stats.split_sums(out, c)
+    bufs = {"partial": torch.empty((b, -(-(h * w) // TWO_LAUNCH_CHUNK), nv), **f32),
+            "sum_abs": torch.empty((b, c, 9), **f32), "sum_sq": torch.empty((b, c, 9), **f32),
+            "counts": torch.empty((b, 9), **f32)}
+    return bufs, (bufs["sum_abs"], bufs["sum_sq"], bufs["counts"])
+
+
+def masked_arguments(params, pred, target, dw, bufs: dict, stream: int) -> list:
+    """The values for ``params`` of one ``maunet_masked_class_sums`` launch
+    (either signature) into ``bufs`` (``masked_outputs``)."""
+    from maunet_tpu_torch.ops.kernels import masked_stats
+
+    b, h, w, c = pred.shape
+    values = {"pred": pred.data_ptr(), "target": target.data_ptr(), "dw": dw.data_ptr(),
+              **{name: t.data_ptr() for name, t in bufs.items()},
+              "B": b, "hw": h * w, "nchunks": -(-(h * w) // TWO_LAUNCH_CHUNK), "C": c,
+              "dtype": masked_stats._DTYPES[pred.dtype], "stream": stream}
+    return named_arguments("maunet_masked_class_sums", params, values)
+
+
+def parent_masked(path: str, name: str | None = None):
+    """Compile another ``masked_stats.cu`` into a library of its own and
+    return a function (pred, target, dw) -> (sum_abs, sum_sq, counts)."""
+    from maunet_tpu_torch.ops.kernels import _build
+
+    fn, params = parent_entry(path, "maunet_masked_class_sums", name)
+
+    def launch(pred, target, dw):
+        bufs, sums = masked_outputs(params, pred)
+        code = fn(*masked_arguments(params, pred, target, dw, bufs, _build.stream_of(pred)))
+        if code != 0:
+            raise RuntimeError(f"parent masked_stats: CUDA error {code}")
+        return sums
+
+    return launch
+
+
+def masked_bincount(pred, target, dw):
+    """D's three outputs composed of ``torch.bincount`` calls with weights:
+    a yardstick of several launches, not one call.  Pixels whose class lies
+    outside 0..8 go to a bin past the last, which is dropped."""
+    b, h, w, c = pred.shape
+    err = (pred - target).float().reshape(b * h * w, c)
+    cls = dw.reshape(b, h * w).long()
+    bins = b * 9
+    idx = torch.where((cls >= 0) & (cls < 9),
+                      cls + 9 * torch.arange(b, device=pred.device)[:, None], bins).reshape(-1)
+    counts = torch.bincount(idx, minlength=bins + 1)[:bins].float().view(b, 9)
+    vals = torch.cat([err.abs(), err * err], 1)          # (pixels, 2C)
+    cols = torch.arange(2 * c, device=pred.device)
+    sums = torch.bincount((idx[:, None] * (2 * c) + cols).reshape(-1), weights=vals.reshape(-1),
+                          minlength=(bins + 1) * 2 * c)[:bins * 2 * c]
+    sums = sums.float().view(b, 9, 2, c).permute(2, 0, 3, 1)  # (2, B, C, 9)
+    return sums[0], sums[1], counts
+
+
+def host_call_ms(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` back to back (the device keeps up):
+    what the wrapper costs the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def masked_profile(dev: torch.device, parent_paths: list[str] | None) -> None:
+    """``--masked``: kernel D alone: registers, agreement with the plain
+    version and the parent versions, kernel and host times beside the read
+    floor, the bincount composition and the bound."""
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import masked_stats
+
+    ptxas_report("masked_stats.cu", masked_kernel_label)
+    paths = parent_paths or []
+    parents = {n: parent_masked(p, n) for n, p in zip(parent_names(paths), paths)}
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for shape, dtype, tol, absent, outside, _ in cs.MASKED_CASES:
+        pred, target, dw = cs.masked_inputs(g, dev, shape, dtype, absent, outside)
+        label = f"{shape} {str(dtype).split('.')[-1]}"
+        calls = {"tree": lambda: masked_stats.masked_class_sums(pred, target, dw)}
+        checks = {"plain": masked_stats.masked_class_sums_plain(pred, target, dw),
+                  "bincount": masked_bincount(pred, target, dw)}
+        for name, parent in parents.items():
+            calls[name] = (lambda p: lambda: p(pred, target, dw))(parent)
+            checks[name] = calls[name]()
+        got = calls["tree"]()
+        agree = []
+        for name, want in checks.items():
+            diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all()) for a, b in zip(got, want))
+            agree.append(f"{name} {diff:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok and name != "bincount":
+                raise AssertionError(f"masked_class_sums {label}: the tree's kernel and the "
+                                     f"{name} version disagree")
+        nbytes = cs.masked_work(shape, pred.element_size())[0]
+        # The read floor: one library launch reading exactly D's input bytes.
+        flat = torch.zeros((pred.numel() * 2 * pred.element_size() + dw.numel() * 4) // 4,
+                           dtype=torch.float32, device=dev)
+        calls["read floor"] = lambda: torch.sum(flat)
+        calls["bincount (not one call)"] = lambda: masked_bincount(pred, target, dw)
+        order = [*parents, "tree", "tree", *reversed(parents)]
+        times: dict[str, list[tuple[float, float]]] = {}
+        turns = []
+        for key in order + ["read floor", "bincount (not one call)"]:
+            times.setdefault(key, []).append((kernel_ms(calls[key]), device_ms(calls[key])))
+            if key == "tree" or key in parents:
+                turns.append(f"{key} {times[key][-1][0]:.4f}")
+        mean = {k: tuple(statistics.mean(v[j] for v in vs) for j in (0, 1))
+                for k, vs in times.items()}
+        host = host_call_ms(calls["tree"])
+        launches = launches_per_call(device_events(calls["tree"]), 10)
+        print(f"check {label}: max |tree - x| " + ", ".join(agree)
+              + f" (tol {tol:g} + {tol:g}|x|)")
+        print(f"time {label}: " + ", ".join(f"{k} {t:.4f}" for k, (t, _) in mean.items())
+              + f" ms of kernel time (trace); bound {nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f} "
+              f"(bytes: {nbytes / 1e6:.2f} MB); events around ten calls: "
+              + ", ".join(f"{k} {e:.4f}" for k, (_, e) in mean.items())
+              + f"; host time per wrapper call {host:.4f} ms; in turns (trace): "
+              + ", ".join(turns) + f"; the tree's trace: {launches}")
+
+
 # The path shapes of chip_smoke.RESIZE_CASES whose times --resize sums, four
 # each: (label, index of the first).
 RESIZE_PATHS = (("serving B=8", 0), ("evaluation U-Net B=16", 4),
@@ -619,6 +951,12 @@ def kernel_ms(fn, calls: int = 10) -> float:
     """Device time per call as the summed kernel, memset and memcpy durations
     of a ``torch.profiler`` trace of ``calls`` calls after three warm-up
     calls: the host's enqueue between the launches does not count."""
+    return kernel_sum_ms(device_events(fn, calls), calls)
+
+
+def device_events(fn, calls: int = 10) -> list[dict]:
+    """The trace events of ``calls`` calls of ``fn`` after three warm-up
+    calls, from a profiler session that recorded device work."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -636,10 +974,19 @@ def kernel_ms(fn, calls: int = 10) -> float:
             prof.export_chrome_trace(path)
             with open(path) as f:
                 doc = json.load(f)
-        ms = kernel_sum_ms(doc["traceEvents"] if isinstance(doc, dict) else doc, calls)
-        if ms > 0:
-            return ms
+        events = doc["traceEvents"] if isinstance(doc, dict) else doc
+        if kernel_sum_ms(events, calls) > 0:
+            return events
     raise RuntimeError("three profiler traces held no device events")
+
+
+def launches_per_call(events: list[dict], calls: int) -> str:
+    """The kernels and memsets of a trace of ``calls`` calls, per call."""
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    memsets = sum(e.get("cat") == "gpu_memset" for e in events)
+    names = sorted({masked_kernel_label(n) for n in kernels})
+    return (f"{len(kernels) / calls:g} kernels ({', '.join(names)}) and "
+            f"{memsets / calls:g} memsets per call")
 
 
 def kernel_sum_ms(events: list[dict], calls: int) -> float:
@@ -742,16 +1089,22 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                       help="check and time the LSTM kernels alone")
     mode.add_argument("--resize", action="store_true",
                       help="check and time the resize kernel alone")
-    parser.add_argument("--parent", default=None, metavar="PATH",
-                        help="with --resize: another resize_pack.cu to hold the "
-                             "tree's kernel against and time in turns with it")
+    mode.add_argument("--masked", action="store_true",
+                      help="check and time the masked class sums kernel alone")
+    parser.add_argument("--parent", nargs="+", default=None, metavar="PATH",
+                        help="with --resize, --masked or --lstm: another resize_pack.cu "
+                             "(one), masked_stats.cu or lstm.cu (one or more) to hold the "
+                             "tree's kernel (with --lstm: the gate terms) against and time "
+                             "in turns with it")
     parser.add_argument("--trace", default=None,
                         help="where the Chrome trace is written (default: "
                              "build/port_forward_trace.json, port_train_trace.json "
                              "or port_eval_trace.json)")
     args = parser.parse_args(argv)
-    if args.parent is not None and not args.resize:
-        parser.error("--parent needs --resize")
+    if args.parent is not None and not (args.resize or args.masked or args.lstm):
+        parser.error("--parent needs --resize, --masked or --lstm")
+    if args.resize and args.parent is not None and len(args.parent) > 1:
+        parser.error("--resize takes one --parent")
     return args
 
 
@@ -772,11 +1125,15 @@ def main(argv: list[str] | None = None) -> int:
     if args.conv:
         conv_profile(dev)
     elif args.resize:
-        resize_profile(dev, args.parent)
+        resize_profile(dev, args.parent[0] if args.parent else None)
     elif args.lstm:
         ptxas_report("lstm.cu", lstm_kernel_label)
-        lstm_checks(dev)
-        lstm_times(dev)
+        paths = args.parent or []
+        parents = {n: parent_gate_terms(p, n) for n, p in zip(parent_names(paths), paths)}
+        lstm_checks(dev, parents)
+        lstm_times(dev, parents)
+    elif args.masked:
+        masked_profile(dev, args.parent)
     elif args.train:
         train_profile(trace, dev)
     elif args.eval:

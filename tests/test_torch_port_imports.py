@@ -161,16 +161,17 @@ def test_kernel_branches_marshal_arguments(monkeypatch):
     assert [f.launches for f in (packed_vgg.conv3x3_fused, lstm.lstm_last_hidden,
                                  resize_pack.resize_pack)] == [n + 1 for n in launches]
 
-    # D: the scratch of partial sums is sized by the kernel's chunk, and the
-    # class map must be int32.
+    # D: one launch into one (B, 9 (2C + 1)) output, of which the three
+    # sums are views; the class map must be int32.
     n_d = masked_stats.masked_class_sums.launches
     pred = torch.zeros(3, 50, 50, 2)
     sums = masked_stats.masked_class_sums(pred, pred, torch.zeros(3, 50, 50, dtype=torch.int32))
     assert [tuple(t.shape) for t in sums] == [(3, 2, 9), (3, 2, 9), (3, 9)]
     name, args = calls[-1]
-    assert name == "maunet_masked_class_sums" and args[7:12] == (3, 2500, 2, 2, 0)
+    assert name == "maunet_masked_class_sums" and args[4:8] == (3, 2500, 2, 0)
+    assert args[3] == sums[0].data_ptr() and sums[0]._base is sums[2]._base is not None
     assert masked_stats.masked_class_sums(pred.bfloat16(), pred.bfloat16(), torch.zeros(
-        3, 50, 50, dtype=torch.int32))[0].dtype == torch.float32 and calls[-1][1][11] == 1
+        3, 50, 50, dtype=torch.int32))[0].dtype == torch.float32 and calls[-1][1][7] == 1
     with pytest.raises(ValueError, match="int32"):
         masked_stats.masked_class_sums(pred, pred, torch.zeros(3, 50, 50, dtype=torch.int64))
     with pytest.raises(ValueError, match="1-4 channels"):
@@ -198,3 +199,43 @@ def test_kernel_branches_marshal_arguments(monkeypatch):
         packed_vgg.conv3x3_pair_fused(parts, weights,
                                       torch.zeros(20, 12, 3, 3, requires_grad=True))
     assert packed_vgg.conv3x3_pair_fused.launches == n_g + 1
+
+
+def test_entry_points_are_looked_up_once(monkeypatch):
+    """``_build.function`` declares an entry point's argument types once and
+    hands the same function back on every later call: a launch costs the
+    host one dictionary lookup, not a library lookup."""
+    import ctypes
+
+    class FakeLibrary:
+        looked_up = 0
+
+        def __getattr__(self, name):
+            FakeLibrary.looked_up += 1
+            return ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
+
+    monkeypatch.setattr(_build, "_library", lambda: FakeLibrary())
+    monkeypatch.setattr(_build, "_FUNCTIONS", {})
+    argtypes = [ctypes.c_void_p, ctypes.c_int]
+    first = _build.function("maunet_example", argtypes)
+    assert _build.function("maunet_example", list(argtypes)) is first
+    assert first.argtypes == argtypes and first.restype is ctypes.c_int
+    assert FakeLibrary.looked_up == 1
+    assert _build.function("maunet_example", [ctypes.c_int]) is not first
+    assert FakeLibrary.looked_up == 2
+
+
+def test_require_formats_its_message_only_on_failure():
+    calls = []
+
+    def message():
+        calls.append(1)
+        return "formatted"
+
+    _build.require(True, "what", message)
+    assert calls == []
+    with pytest.raises(ValueError, match="what: formatted"):
+        _build.require(False, "what", message)
+    with pytest.raises(ValueError, match="what: plain"):
+        _build.require(False, "what", "plain")
+    assert calls == [1]

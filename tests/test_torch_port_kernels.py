@@ -17,6 +17,7 @@ import torch
 
 from maunet_tpu.ops.packed_conv import pack, pack_weights
 from maunet_tpu.ops.pallas.lstm import _pallas_forward, lstm_last_hidden_scan
+from maunet_tpu.ops.pallas.masked_stats import masked_class_sums as jax_masked_class_sums
 from maunet_tpu.ops.pallas.packed_vgg import packed_conv3x3_fused, supported
 from maunet_tpu.ops.pallas.resize_pack import resize_pack
 from maunet_tpu.ops.resize import resize_align_corners as jax_resize
@@ -24,6 +25,7 @@ from maunet_tpu.ops.resize import upsample_like as jax_upsample_like
 
 from maunet_tpu_torch.ops import resize as port_resize
 from maunet_tpu_torch.ops.kernels import lstm as port_lstm
+from maunet_tpu_torch.ops.kernels import masked_stats as port_ms
 from maunet_tpu_torch.ops.kernels import packed_vgg as port_vgg
 from maunet_tpu_torch.ops.kernels import resize_pack as port_rp
 
@@ -231,3 +233,70 @@ def test_strip_rows_cover_every_output_row_once(case):
     # shape takes the tallest.
     assert rows == 8 or b * -(-oh // (2 * rows)) * ow * groups < port_rp._MIN_THREADS
     assert rows == 8 or case >= 12    # the twelve decoder shapes come first
+
+
+def _masked_walk(b_total, hw, c, vec):
+    """The pixels that ``csrc/masked_stats.cu``'s kernel reads, as the
+    cluster of each sample walks it: per flat pixel the number of threads
+    that read it.  With ``vec``, groups of 4 pixels (2 at 3 and 4 channels)
+    from the first flat index divisible by the group at a stride of the
+    cluster's 4,096 threads, then the pixels before the first boundary and
+    after the last one a thread; else one pixel a thread."""
+    cluster, threads, group = 8, 512, 4 if c <= 2 else 2
+    span = cluster * threads
+    stride = span * group
+    seen = np.zeros(b_total * hw, np.int64)
+    lane_c = np.arange(span)
+    for b in range(b_total):
+        first, last = b * hw, (b + 1) * hw
+        if not vec:
+            for p in range(first, last, span):
+                idx = p + lane_c
+                np.add.at(seen, idx[idx < last], 1)
+            continue
+        a0 = min(-(-first // group) * group, last)
+        a1 = max(a0, last // group * group)
+        p = a0 + lane_c * group
+        while (p < a1).any():
+            for px in range(group):
+                np.add.at(seen, (p + px)[p < a1], 1)
+            p = p + stride
+        head, edges = a0 - first, (a0 - first) + (last - a1)
+        edge = lane_c[lane_c < edges]
+        np.add.at(seen, np.where(edge < head, first + edge, a1 + (edge - head)), 1)
+    return seen
+
+
+@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("vec", [True, False])
+def test_masked_walk_reads_every_pixel_once(case, vec):
+    """At each shape of ``chip_smoke.py``'s D list (and B = 8 and 3 of the
+    evaluation batch) the clusters' walk reads every pixel of every sample
+    exactly once, with 16-byte group loads where the bases allow and one
+    pixel a thread where they do not."""
+    shape, *_ = _chip_smoke().MASKED_CASES[case]
+    b, h, w, c = shape
+    assert (_masked_walk(b, h * w, c, vec) == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 2), (3, 25, 19, 2), (2, 16, 8, 3), (1, 5, 3, 1)])
+def test_masked_sums_as_views_match_plain_and_jax(shape):
+    """The kernel writes one (B, 9 (2C + 1)) row per sample; ``split_sums``
+    gives the three sums as views of it.  Rows packed from the plain
+    version's sums come back as the plain version's sums and JAX's Pallas
+    kernel's, in interpret mode."""
+    rng = np.random.default_rng(3)
+    pred = rng.normal(size=shape).astype(np.float32)
+    target = rng.normal(size=shape).astype(np.float32)
+    dw_map = rng.integers(-1, 10, size=shape[:3]).astype(np.int32)
+    plain = port_ms.masked_class_sums_plain(_t(pred), _t(target), torch.from_numpy(dw_map))
+    b, _, _, c = shape
+    out = torch.cat([plain[0].reshape(b, -1), plain[1].reshape(b, -1), plain[2]], 1)
+    assert out.shape == (b, 9 * (2 * c + 1))
+    views = port_ms.split_sums(out, c)
+    want = jax_masked_class_sums(jnp.asarray(pred), jnp.asarray(target), jnp.asarray(dw_map),
+                                 interpret=True)
+    for v, p, j in zip(views, plain, want):
+        assert v._base is out and v.shape == p.shape
+        assert torch.equal(v, p)
+        np.testing.assert_allclose(v.numpy(), np.asarray(j), rtol=1e-5, atol=1e-5)

@@ -97,25 +97,32 @@ def test_eval_family(profile_port, name, want):
 @pytest.mark.parametrize("argv, mode", [
     ([], None), (["--lstm"], "lstm"), (["--conv"], "conv"),
     (["--train", "--trace", "t.json"], "train"), (["--eval"], "eval"),
-    (["--resize"], "resize"), (["--resize", "--parent", "x.cu"], "resize")])
+    (["--resize"], "resize"), (["--resize", "--parent", "x.cu"], "resize"),
+    (["--masked"], "masked"), (["--masked", "--parent", "x.cu"], "masked"),
+    (["--lstm", "--parent", "x.cu"], "lstm"),
+    (["--lstm", "--parent", "x.cu", "y.cu"], "lstm"),
+    (["--masked", "--parent", "x.cu", "y.cu"], "masked")])
 def test_parse_args_modes(profile_port, argv, mode):
     args = profile_port.parse_args(argv)
-    modes = [m for m in ("train", "eval", "conv", "lstm", "resize") if getattr(args, m)]
+    modes = [m for m in ("train", "eval", "conv", "lstm", "resize", "masked")
+             if getattr(args, m)]
     assert modes == ([mode] if mode else [])
     assert args.trace == ("t.json" if "--trace" in argv else None)
-    assert args.parent == ("x.cu" if "--parent" in argv else None)
+    assert args.parent == (argv[argv.index("--parent") + 1:] if "--parent" in argv else None)
 
 
 @pytest.mark.parametrize("argv", [
     ["--lstm", "--conv"], ["--lstm", "--train"], ["--lstm", "x"], ["--resize", "--lstm"],
-    ["--resize", "--conv"], ["--parent", "x.cu"], ["--lstm", "--parent", "x.cu"],
-    ["--resize", "x.cu"]])
+    ["--resize", "--conv"], ["--parent", "x.cu"], ["--conv", "--parent", "x.cu"],
+    ["--resize", "x.cu"], ["--masked", "--lstm"], ["--masked", "--resize"],
+    ["--masked", "x.cu"], ["--train", "--parent", "x.cu"],
+    ["--resize", "--parent", "x.cu", "y.cu"], ["--lstm", "--parent"]])
 def test_lstm_mode_refuses_other_modes_and_arguments(profile_port, argv):
     with pytest.raises(SystemExit):
         profile_port.parse_args(argv)
 
 
-@pytest.mark.parametrize("mode", ["--lstm", "--resize"])
+@pytest.mark.parametrize("mode", ["--lstm", "--resize", "--masked"])
 def test_lstm_mode_needs_a_card(profile_port, capsys, mode):
     import torch
 
@@ -134,6 +141,10 @@ def test_lstm_mode_needs_a_card(profile_port, capsys, mode):
     ("'_ZN12_GLOBAL__N_120lstm_backward_kernelILi24EEEvPKfS2_PKiS2_Pfii'",
      "lstm_backward_kernel<KS = 24>"),
     ("'_ZN12_GLOBAL__N_122lstm_gate_terms_kernelEPKfS1_PKiS1_S1_Pfii'", "lstm_gate_terms_kernel"),
+    ("'_ZN12_GLOBAL__N_122lstm_gate_terms_kernelILb1EEEvPKfS2_PKiS2_S2_Pfiii'",
+     "lstm_gate_terms_kernel<true>"),
+    ("'_ZN12_GLOBAL__N_122lstm_dw_partial_kernelILb0EEEvPKfS2_PKiPfiiii'",
+     "lstm_dw_partial_kernel<false>"),
 ])
 def test_lstm_kernel_label(profile_port, entry, want):
     assert profile_port.lstm_kernel_label(f"ptxas info    : Compiling entry function {entry}") == want
@@ -191,3 +202,147 @@ def test_kernel_sum_counts_device_work_only(profile_port):
     ]
     assert profile_port.kernel_sum_ms(events, 2) == pytest.approx(0.095)
     assert profile_port.kernel_sum_ms([], 5) == 0.0
+
+
+@pytest.mark.parametrize("entry, want", [
+    ("'_ZN12_GLOBAL__N_127masked_stats_partial_kernelIfLi2EEEvPKT_S3_PKiPfxi'",
+     "masked_stats_partial_kernel<f32, C = 2>"),
+    ("'_ZN12_GLOBAL__N_127masked_stats_partial_kernelI6__halfLi3EEEvPKT_S4_PKiPfxi'",
+     "masked_stats_partial_kernel<f16, C = 3>"),
+    ("'_ZN12_GLOBAL__N_126masked_stats_reduce_kernelEPKfPfS2_S2_ii'", "masked_stats_reduce_kernel"),
+    ("'_ZN12_GLOBAL__N_119masked_stats_kernelI13__nv_bfloat16Li1ELb1EEEvPKT_S4_PKiPfxi'",
+     "masked_stats_kernel<bf16, C = 1, VEC = true>"),
+    ("'_ZN12_GLOBAL__N_119masked_stats_kernelIfLi4ELb0EEEvPKT_S3_PKiPfxi'",
+     "masked_stats_kernel<f32, C = 4, VEC = false>"),
+])
+def test_masked_kernel_label(profile_port, entry, want):
+    assert profile_port.masked_kernel_label(
+        f"ptxas info    : Compiling entry function {entry}") == want
+
+
+# maunet_masked_class_sums while D was two launches, with its scratch.
+TWO_LAUNCH_MASKED = (
+    'extern "C" int maunet_masked_class_sums(const void* pred, const void* target,\n'
+    "    const void* dw, void* partial, void* sum_abs,\n    void* sum_sq, void* counts, int B,\n"
+    "    long long hw, int nchunks, int C, int dtype,\n    void* stream) {")
+ONE_LAUNCH_MASKED = (
+    'extern "C" int maunet_masked_class_sums(const void* pred, const void* target,\n'
+    "    const void* dw, void* out, int B, long long hw, int C, int dtype, void* stream) {")
+
+
+@pytest.mark.parametrize("source", [TWO_LAUNCH_MASKED, ONE_LAUNCH_MASKED, "tree"])
+def test_masked_parent_arguments_follow_its_signature(profile_port, source):
+    """``--masked --parent`` calls another ``masked_stats.cu`` with the
+    buffers and sizes its entry point names: the two-launch signature (with
+    scratch sized by its 2,048-pixel chunk, a ``long long`` pixel count and
+    three outputs) or one output row per sample, whose views are the sums."""
+    import ctypes
+
+    import torch
+
+    if source == "tree":
+        with open(os.path.join(REPO, "maunet_tpu_torch", "csrc", "masked_stats.cu")) as f:
+            source = f.read()
+    params = profile_port.entry_params(source, "maunet_masked_class_sums")
+    kinds = dict(params)
+    assert kinds["hw"] is ctypes.c_longlong and kinds["B"] is ctypes.c_int
+    assert kinds["pred"] is kinds["stream"] is ctypes.c_void_p
+    pred = torch.zeros(3, 50, 50, 2)
+    dw = torch.zeros(3, 50, 50, dtype=torch.int32)
+    bufs, sums = profile_port.masked_outputs(params, pred)
+    assert [tuple(t.shape) for t in sums] == [(3, 2, 9), (3, 2, 9), (3, 9)]
+    args = profile_port.masked_arguments(params, pred, pred.bfloat16(), dw, bufs, 9)
+    values = dict(zip((name for name, _ in params), args))
+    assert values["B"] == 3 and values["hw"] == 2500 and values["C"] == 2
+    assert values["dtype"] == 0 and values["stream"] == 9 and values["dw"] == dw.data_ptr()
+    if "out" in values:
+        out = bufs["out"]
+        assert set(bufs) == {"out"} and out.shape == (3, 45)
+        assert all(t.data_ptr() >= out.data_ptr() for t in sums)
+        out.copy_(torch.arange(135.0).view(3, 45))
+        assert float(sums[1][1, 0, 0]) == 45 + 18 and float(sums[2][2, 8]) == 134
+    else:
+        assert values["nchunks"] == 2 and bufs["partial"].shape == (3, 2, 45)
+        assert values["sum_abs"] == sums[0].data_ptr() and values["counts"] == sums[2].data_ptr()
+    with pytest.raises(ValueError, match="unknown parameters"):
+        profile_port.masked_arguments([("pred", ctypes.c_void_p), ("flags", ctypes.c_int)],
+                                      pred, pred, dw, bufs, 0)
+
+
+@pytest.mark.parametrize("source", ["tree", "reordered"])
+def test_gate_terms_parent_arguments_follow_its_signature(profile_port, source):
+    """``--lstm --parent`` calls another ``lstm.cu``'s
+    ``maunet_lstm_gate_terms`` with the arguments its signature names."""
+    import ctypes
+
+    import torch
+
+    if source == "tree":
+        with open(os.path.join(REPO, "maunet_tpu_torch", "csrc", "lstm.cu")) as f:
+            source = f.read()
+    else:
+        source = ('extern "C" int maunet_lstm_gate_terms(const void* h_all, const void* c_all,\n'
+                  "    const void* x_proj, const void* w_hh, const void* lengths, void* terms,\n"
+                  "    int H, int T, int B, void* stream) {")
+    params = profile_port.entry_params(source, "maunet_lstm_gate_terms")
+    assert sorted(name for name, _ in params) == sorted(
+        ["x_proj", "w_hh", "lengths", "h_all", "c_all", "terms", "B", "T", "H", "stream"])
+    assert all((kind is ctypes.c_void_p) == (name in ("x_proj", "w_hh", "lengths", "h_all",
+                                                      "c_all", "terms", "stream"))
+               for name, kind in params)
+    x, w = torch.zeros(2, 7, 40), torch.zeros(10, 40)
+    lens = torch.tensor([7, 3], dtype=torch.int32)
+    h, c, terms = torch.zeros(2, 7, 10), torch.ones(2, 7, 10), torch.zeros(2, 7, 60)
+    values = dict(zip((name for name, _ in params),
+                      profile_port.gate_arguments(params, x, w, lens, h, c, terms, 4)))
+    assert (values["B"], values["T"], values["H"], values["stream"]) == (2, 7, 10, 4)
+    assert values["x_proj"] == x.data_ptr() and values["c_all"] == c.data_ptr()
+    assert values["terms"] == terms.data_ptr() and values["lengths"] == lens.data_ptr()
+
+
+def test_same_gate_bits_reads_only_rows_the_kernel_writes(profile_port):
+    import torch
+
+    lens = torch.tensor([3, 0, 5], dtype=torch.int32)
+    got = torch.randn(3, 5, 12)
+    want = got.clone()
+    want[0, 3:] = float("nan")          # rows t >= length are never written
+    want[1] = 7.0
+    profile_port.same_gate_bits("case", lens, got, want)
+    want[2, 4, 11] = torch.nextafter(want[2, 4, 11], torch.tensor(1e9))
+    with pytest.raises(AssertionError, match="other bits"):
+        profile_port.same_gate_bits("case", lens, got, want)
+
+
+@pytest.mark.parametrize("shape, dtype, outside", [
+    ((2, 16, 16, 2), "float32", False), ((3, 5, 7, 1), "float32", True),
+    ((2, 9, 9, 3), "bfloat16", True)])
+def test_masked_bincount_gives_the_plain_sums(profile_port, shape, dtype, outside):
+    """The bincount yardstick of ``--masked`` computes D's three outputs,
+    out-of-range classes counting nowhere."""
+    import torch
+
+    from maunet_tpu_torch.ops.kernels import masked_stats
+
+    g = torch.Generator().manual_seed(0)
+    pred = torch.randn(shape, generator=g).to(getattr(torch, dtype))
+    target = torch.randn(shape, generator=g).to(getattr(torch, dtype))
+    dw = torch.randint(0, 9, shape[:3], generator=g, dtype=torch.int32)
+    if outside:
+        dw[0, 0] = 11
+        dw[-1, -1] = -3
+    got = profile_port.masked_bincount(pred, target, dw)
+    want = masked_stats.masked_class_sums_plain(pred, target, dw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_parent_names_are_distinct(profile_port):
+    """Each ``--parent`` file gets its own library and row: its stem, with
+    its position where two stems are alike."""
+    assert profile_port.parent_names(["build/parent/lstm.cu", "v/lstm_draft.cu"]) == [
+        "lstm", "lstm_draft"]
+    assert profile_port.parent_names(["a/lstm.cu", "b/lstm.cu", "c/x.cu"]) == [
+        "lstm_0", "lstm_1", "x"]
+    assert profile_port.parent_names([]) == []

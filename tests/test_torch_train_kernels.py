@@ -268,6 +268,11 @@ def test_kernel_branches_marshal_training_arguments(monkeypatch):
         lstm.lstm_backward(torch.zeros(1, 2, 4 * 120), torch.zeros(120, 480),
                            torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, 120),
                            torch.zeros(1, 2, 120), torch.zeros(1, 120))
+    # The gate terms keep all of W_hh in one block's shared memory: the same range.
+    with pytest.raises(ValueError, match="outside 1..96"):
+        lstm.lstm_gate_terms(torch.zeros(1, 2, 4 * 97), torch.zeros(97, 388),
+                             torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, 97),
+                             torch.zeros(1, 2, 97))
 
     # Grad enabled and an input that needs a gradient: the Function (E);
     # under no_grad: the inference kernel (B).
@@ -384,3 +389,47 @@ def test_f_counts_each_launch_where_it_launches(monkeypatch, entry, counted, che
     assert names == [{"lstm_gate_terms": "maunet_lstm_gate_terms",
                       "lstm_backward": "maunet_lstm_backward"}[n] for n in counted]
     assert len(seen) == checks
+
+
+def _gate_resolve_rows(lengths, t, first):
+    """The gate-terms kernel's row lookup (``warp_resolve_rows`` in
+    ``csrc/lstm.cu``), lane by lane as the warp takes it: active row
+    ``first + lane`` of the rows t < length of every sample, as (b * T + t,
+    t), or (-1, 0) past the last; a prefix of the clamped lengths, 32
+    samples at a time."""
+    b_total = len(lengths)
+    out = []
+    for lane in range(32):
+        a, row, step, base = first + lane, -1, 0, 0
+        for b0 in range(0, b_total, 32):
+            lens = [max(0, min(lengths[b], t)) if b < b_total else 0
+                    for b in range(b0, b0 + 32)]
+            incl = np.cumsum(lens)
+            total = int(incl[-1])
+            j = int(sum(base + incl[i] <= a for i in range(32)))
+            if base <= a < base + total:
+                step = a - base - int(incl[j] - lens[j])
+                row = (b0 + j) * t + step
+            base += total
+        out.append((row, step))
+    return out
+
+
+@pytest.mark.parametrize("t, lengths", [
+    (828, [828, 828, 700, 600, 414, 300, 100, 1, 0, 827, 828, 500, 828, 64, 828, 2]),
+    (64, [0, 1, 64, 70, -3]), (10, [0, 0, 0]), (5, [5] * 40 + [0, 3, -1, 9] + [1] * 30),
+    (1, [1, 0, 2, -5, 1]), (33, [33])])
+def test_gate_terms_tiles_cover_every_active_row_once(t, lengths):
+    """The gate terms' tiles of 32 consecutive active rows cover every
+    (b, t < length) once, lengths clamped to 0..T (0, 1, T, past T and
+    negative; more than 32 samples take several chunks of the prefix), and
+    rows past the last are marked -1."""
+    n_active = sum(max(0, min(n, t)) for n in lengths)
+    seen = []
+    for tile in range(-(-n_active // 32)):
+        rows = _gate_resolve_rows(lengths, t, tile * 32)
+        seen += [r for r in rows if r[0] >= 0]
+        assert all(r == (-1, 0) for r in rows[len([r for r in rows if r[0] >= 0]):])
+    want = [(b * t + s, s) for b, n in enumerate(lengths) for s in range(max(0, min(n, t)))]
+    assert seen == want
+    assert _gate_resolve_rows(lengths, t, -(-n_active // 32) * 32) == [(-1, 0)] * 32
