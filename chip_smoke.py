@@ -26,7 +26,8 @@ Phases, one output line each (or a few for the kernel table):
    an evaluation batch (B = 16) gives A, B and C are checked here as well:
    the U-Net's three convs and four upsamples, U-Net++'s eleven distinct
    base-32 convs (up to five parts plus the embedding term) and its four
-   upsamples, and the LSTM at 16 lengths between T/2 and T.  B, E and F
+   upsamples, and the LSTM at 16 lengths between T/2 and T; B also at the
+   sensitivity sweeps' batches (B = 50 and 41, one length each).  B, E and F
    are also held against their plain versions at the edges of what the
    kernels take (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
    B = 1, H = 50, 64 and 96, T = 64 and 828).  F is two launches, the gate
@@ -78,7 +79,23 @@ Phases, one output line each (or a few for the kernel table):
    eligible blocks (2 in the U-Net: ``conv0_0``, ``conv0_1``; 9 in U-Net++:
    ``conv0_0``-``conv0_4``, ``conv1_0``-``conv1_3``), the output must agree
    with the ``fuse_pair=False`` forward, and both forwards are timed in
-   turns (off, on, on, off).
+   turns (off, on, on, off);
+9. research command line: on the serving U-Net's checkpoint and phase 7's
+   evaluation CSV, ``run_sensitivity`` sweeps the 40 test samples (50
+   latitude and 50 longitude variants each, a 20×20 heatmap for each
+   highlighted sample) in chunks of 50 variants, one forward a chunk:
+   A, B and C must launch exactly 4, 1 and 4 times a chunk and no weight
+   may be prepared after the first chunk; the JSON's schema is checked (50
+   points a sweep, 20×20 heatmaps, every number finite).  One sample's
+   latitude chunk is run again with the plain versions patched in (per
+   channel within 1e-2 of the channel's largest mean), and one chunk is
+   timed with CUDA events.  ``run_temporal_sensitivity`` then runs 24 of
+   the samples at 41 offsets (A, B and C at B = 41).  The command line's
+   ``bench`` runs the inference, lstm (the plain recurrence at 5
+   iterations, best of 2) and eval suites on the card, each row printed on
+   a line of its own (the train suite is left out to keep the script's
+   time: the study below trains), and its ``train`` runs a one-trial study
+   of one epoch on phase 6's data, which must end ``COMPLETE``.
 
 The line before the last is the kernel summary JSON: per kernel the launch
 count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
@@ -130,8 +147,11 @@ TF32 is off for cuDNN and matmuls, so the plain versions run in full f32.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
+import functools
+import io
 import json
 import math
 import os
@@ -300,6 +320,9 @@ EVAL_BATCH = 16
 EVAL_LENGTHS = [828, 414, 700, 512, 621, 799, 450, 828, 733, 580, 666, 415, 777, 502, 640, 811]
 # The LSTM lengths of phase 3's predict_many batch (B=8) for B.
 SERVING_LENGTHS = [828, 828, 600, 414, 100, 1, 0, 827]
+# The sensitivity sweeps' batches for B: a chunk of 50 metadata variants and
+# the 41 series offsets of one tile, so one length each.
+SWEEP_LENGTHS = ([T_SERIES] * 50, [612] * 41)
 # (hidden, T, lengths) of phase 3's edge-case checks of B, E and F.
 LSTM_EDGE_CASES = [
     (96, T_SERIES, [0, 1, T_SERIES]), (96, 64, [64]), (64, 64, [64, 0, 1, 33]),
@@ -511,7 +534,8 @@ def check_kernels(table: KernelTable, dev) -> None:
             raise AssertionError(f"masked_class_sums: counted {counted} of {inside} pixels")
 
     # B: the temporal encoder's recurrence at the predict_many batch with
-    # mixed lengths, at B=1 (predict) and at the evaluation batch.  Its bound counts the steps this
+    # mixed lengths, at B=1 (predict), at the evaluation batch and at the
+    # sensitivity sweeps' batches.  Its bound counts the steps this
     # batch's lengths need; the library call is cuDNN's LSTM over the raw
     # series at full length (what batch_max masking runs).
     hidden = 96
@@ -519,10 +543,12 @@ def check_kernels(table: KernelTable, dev) -> None:
 
     def lstm_case(lens, hidden=hidden, t=T_SERIES):
         x_proj, w_hh, lengths = lstm_inputs(g, dev, hidden, t, lens)
-        return lengths, x_proj, w_hh, f"({len(lens)}, {t}, {4 * hidden}) lengths={lens}"
+        shown = f"{lens[0]} x {len(lens)}" if len(set(lens)) == 1 < len(lens) else lens
+        return lengths, x_proj, w_hh, f"({len(lens)}, {t}, {4 * hidden}) lengths={shown}"
 
     cudnn_lstm = torch.nn.LSTM(1, hidden, batch_first=True).to(dev)
-    for lens, on_path in [(SERVING_LENGTHS, True), ([828], False), (EVAL_LENGTHS, False)]:
+    for lens, on_path in [(SERVING_LENGTHS, True), ([828], False), (EVAL_LENGTHS, False)] + [
+            (lens, False) for lens in SWEEP_LENGTHS]:
         steps = sum(lens)
         lens, x_proj, w_hh, label = lstm_case(lens)
         series = randn(len(lens), T_SERIES, 1)
@@ -1167,6 +1193,171 @@ def pair_path(dev, checkpoints: dict[str, str]) -> dict[str, int]:
     return total
 
 
+# Launches of A, B and C per forward of the serving U-Net (base 64), so per
+# sweep chunk: the two convs of conv0_0 and of conv0_1 (out <= 64) take A,
+# the LSTM B, the four decoder upsamples C.
+SWEEP_LAUNCHES = {"conv3x3_fused": 4, "lstm_last_hidden": 1, "resize_pack": 4}
+# Rows of phase 9's benchmark suites on the card: inference at B = 1, 8, 16
+# and U-Net++, lstm with B and plain at B = 8 and 1, eval with D and plain.
+BENCH_ROWS = 4 + 4 + 2
+
+
+def check_sweep_json(path: str, sweeps: dict[str, int], heatmaps: int) -> dict:
+    """A sweep export's schema: each sweep's points, both channels' mean and
+    std, ``heatmaps`` 20×20 grids per channel, every number finite."""
+    with open(path) as f:
+        export = json.load(f)
+    numbers = []
+    if set(export["sweeps"]) != set(sweeps) or len(export["heatmaps"]) != heatmaps:
+        raise AssertionError(f"{path}: sweeps {list(export['sweeps'])}, "
+                             f"{len(export['heatmaps'])} heatmaps")
+    for name, steps in sweeps.items():
+        sweep = export["sweeps"][name]
+        curves = [sweep["x"]] + [c[k] for c in sweep["channels"].values() for k in ("mean", "std")]
+        if len(sweep["channels"]) != 2 or any(len(c) != steps for c in curves):
+            raise AssertionError(f"{path}: sweep {name} is not {steps} points of 2 channels")
+        numbers += [v for c in curves for v in c]
+    for hm in export["heatmaps"].values():
+        for data in hm["channels"].values():
+            values = np.asarray(data["values"], dtype=float)
+            if values.shape != (20, 20) or len(data["lats"]) != 20 or len(data["lons"]) != 20:
+                raise AssertionError(f"{path}: a heatmap is not 20 x 20")
+            numbers += values.ravel().tolist()
+    if not all(map(math.isfinite, numbers)):
+        raise AssertionError(f"{path}: a value is not finite")
+    return export
+
+
+def research_path(dev, tmpdir: str, data: str, checkpoint: str) -> None:
+    """Phase 9: the sweeps, the benchmark suites and a study through the
+    port's research command line, on the serving U-Net's checkpoint."""
+    from maunet_tpu_torch import benchmarks, cli
+    from maunet_tpu_torch.analysis import sensitivity
+    from maunet_tpu_torch.data.dataset import NpzDataset
+    from maunet_tpu_torch.data.schema import NormalizationStats
+    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+    from maunet_tpu_torch.train.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    eval_csv = os.path.join(tmpdir, "reports", "smoke_unet_emb_0_job1_evaluation.csv")
+    rows = sensitivity.read_eval_csv(eval_csv)
+    out_dir = os.path.join(tmpdir, "sensitivity")
+
+    def chunks(n: int) -> int:
+        return -(-n // sensitivity.VARIANT_CHUNK)
+
+    def sweep(run, what, n_chunks, **kw):
+        """``run`` on the card with the launch counters from 0, the model it
+        loads kept and weights_prepared() read after its first forward."""
+        seen = {}
+        real = sensitivity.load_any_checkpoint
+
+        def after_first_forward(*_):      # a hook that returns None keeps the output
+            seen.setdefault("prepared", weights_prepared())
+
+        def loading(*a, **k):
+            loaded = real(*a, **k)
+            loaded.model.register_forward_hook(after_first_forward)
+            seen["loaded"] = loaded
+            return loaded
+
+        with mock.patch.object(sensitivity, "load_any_checkpoint", loading):
+            fns = reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = run(checkpoint, eval_csv, TrainConfig(), data_dir=data,
+                       output_dir=out_dir, device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {name: fns[name].launches for name in SWEEP_LAUNCHES}
+        want = {name: k * n_chunks for name, k in SWEEP_LAUNCHES.items()}
+        print(f"{what}: {n_chunks} chunks in {wall:.2f} s, launches={launches} "
+              f"(A, B, C per chunk {[launches[n] / n_chunks for n in SWEEP_LAUNCHES]})")
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+        require_nothing_prepared(seen["prepared"], what)
+        return path, wall, seen["loaded"]
+
+    # The metadata sweep: every test sample, 50 + 50 variants, and 400 for
+    # each highlighted sample.
+    all_idx, targets, _, _ = sensitivity.select_samples(rows)
+    n_chunks = 2 * len(all_idx) * chunks(sensitivity.LAT_STEPS) + len(targets) * chunks(
+        sensitivity.HEAT_STEPS ** 2)
+    variants = 100 * len(all_idx) + sensitivity.HEAT_STEPS ** 2 * len(targets)
+    path, wall, loaded = sweep(sensitivity.run_sensitivity, "metadata sweep", n_chunks,
+                               make_plots=False)
+    check_sweep_json(path, {"latitude": 50, "longitude": 50}, len(targets))
+    print(f"metadata sweep: {len(all_idx)} samples ({len(targets)} highlighted), "
+          f"{variants} variants, {variants / wall:.1f} variants/s (host clock around "
+          f"run_sensitivity, JSON written); schema ok")
+
+    # One latitude chunk, timed, and against the plain versions.
+    stats = NormalizationStats.from_json(os.path.join(data, "normalization_metrics.json"))
+    sweeper = sensitivity.Sweeper(loaded, stats)
+    sample = NpzDataset(os.path.join(data, "test"), T_SERIES)[targets[0]]
+    tile = sweeper.upload(sample)
+    meta = np.tile(sample["metadata"], (sensitivity.LAT_STEPS, 1))
+    meta[:, 0] = (sensitivity.LAT_RANGE - stats.meta_mean[0]) / stats.meta_std[0]
+    meta = torch.from_numpy(meta).to(dev)
+    chunk_ms = cuda_ms(lambda: sweeper.means(*sweeper.chunk_inputs(tile, meta)))
+    prepared = weights_prepared()
+    got = sweeper.means(*sweeper.chunk_inputs(tile, meta))
+    with mock.patch.object(packed_vgg, "conv3x3_fused", packed_vgg.conv3x3_fused_plain), \
+            mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
+            mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain):
+        want = sweeper.means(*sweeper.chunk_inputs(tile, meta))
+    require_nothing_prepared(prepared, "sweep chunk")
+    scale = want.abs().amax(dim=0)
+    worst = float(((got - want).abs().amax(dim=0) / scale).max())
+    print(f"sweep chunk (50 variants x 256², bf16): {chunk_ms:.3f} ms (CUDA events, median "
+          f"of 10, inputs expanded on the card); against the plain versions, per channel "
+          f"max |diff| / max |mean| = {worst:.3e} (tol 1e-2)")
+    if not worst <= 1e-2:
+        raise AssertionError("a sweep chunk disagrees with its plain versions")
+
+    # The temporal sweep: 41 offsets of each of 24 samples, one chunk each.
+    t_idx, _, _, _ = sensitivity.select_samples(rows, 24)
+    path, wall, _ = sweep(sensitivity.run_temporal_sensitivity, "temporal sweep",
+                          len(t_idx) * chunks(sensitivity.TEMP_OFFSET_STEPS))
+    check_sweep_json(path, {"temporal_offset": 41}, 0)
+    print(f"temporal sweep: {len(t_idx)} samples x 41 offsets, "
+          f"{len(t_idx) * 41 / wall:.1f} variants/s; schema ok")
+
+    # The benchmark suites through the command line, each row on its own
+    # line; the plain recurrence (about 0.2 s a call) at fewer iterations.
+    captured = io.StringIO()
+    quick_lstm = functools.partial(benchmarks.bench_lstm, iters=5, repeats=2)
+    with mock.patch.dict(benchmarks.SUITES, lstm=quick_lstm), \
+            contextlib.redirect_stdout(captured):
+        cli.main(["bench", "--suite", "inference", "lstm", "eval", "--device", str(dev),
+                  "--out", os.path.join(tmpdir, "bench.json"),
+                  "--tmp-dir", os.path.join(tmpdir, "bench")])
+    with open(os.path.join(tmpdir, "bench.json")) as f:
+        bench_rows = json.load(f)
+    for row in bench_rows:
+        print(f"bench row: {json.dumps(row)}")
+        if not (math.isfinite(row["value"]) and row["value"] > 0):
+            raise AssertionError(f"bench row {row['metric']} is not a finite positive number")
+    if len(bench_rows) != BENCH_ROWS:
+        raise AssertionError(f"bench: {len(bench_rows)} rows, want {BENCH_ROWS}")
+
+    # A one-trial study of one epoch through the command line's train.
+    fns = reset_launches()
+    work = os.path.join(tmpdir, "study")
+    cli.main(["train", "--data-dir", data, "--work-dir", work, "--study-name", "smoke",
+              "--n-trials", "1", "--epochs", "1", "--device", str(dev)])
+    with open(f"{work}_hpo/smoke-emb.json") as f:
+        trials = json.load(f)["trials"]
+    launched = {name: fns[name].launches for name in ("lstm_forward_stash", "lstm_backward")}
+    print(f"study: {len(trials)} trial, state {trials[0]['state']}, value "
+          f"{trials[0]['value']}, launches={launched}")
+    if [t["state"] for t in trials] != ["COMPLETE"] or not math.isfinite(trials[0]["value"]):
+        raise AssertionError(f"study: the trial did not complete: {trials}")
+    if 0 in launched.values():
+        raise AssertionError("study: the training kernels were not launched")
+    print(f"research command line: {time.perf_counter() - t_phase:.1f} s")
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -1221,6 +1412,7 @@ def main() -> int:
         unetpp_train(dev, tmpdir, data)
         launches["evaluation"] = eval_path(dev, tmpdir, data, checkpoints)
         launches["pair"] = pair_path(dev, checkpoints)
+        research_path(dev, tmpdir, data, checkpoints["unet"])
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[path][name], **table.summary(name)}

@@ -54,24 +54,13 @@ from maunet_tpu_torch.evaluate.metrics import (
 from maunet_tpu_torch.train.config import TrainConfig
 from maunet_tpu_torch.train.steps import forward_fn
 from maunet_tpu_torch.utils.dw import DW_CLASSES
+from maunet_tpu_torch.utils.tracking import make_emb_tag
 
 log = logging.getLogger(__name__)
 
 # Batches whose metric tensors may wait on the device before the oldest is
 # fetched: enough to keep the device busy while the host formats rows.
 MAX_IN_FLIGHT = 4
-
-
-def make_emb_tag(temporal: bool, metadata: bool) -> str:
-    """Study-name embedding suffix (reference src/train.py:79-87; a copy of
-    ``maunet_tpu/utils/tracking.py::make_emb_tag``)."""
-    if temporal and metadata:
-        return "emb"
-    if temporal:
-        return "tempemb"
-    if metadata:
-        return "metaemb"
-    return "noemb"
 
 
 def _metadata_features(loaded: LoadedModel, default: int) -> int:

@@ -69,14 +69,20 @@ class TemporalEncoder(nn.Module):
         self.lstm = LSTMParams(1, hidden_dim)
         self.fc = nn.Linear(hidden_dim, out_dim)
 
-    def forward(self, series: torch.Tensor,
-                lengths: torch.Tensor | None = None) -> torch.Tensor:
+    def recurrence_inputs(self, series: torch.Tensor, lengths: torch.Tensor | None
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(x_proj (B, T, 4H), W_hh^T (H, 4H), effective lengths (B,)): the
+        arguments of the recurrence."""
         b, t = series.shape
         p = self.lstm
         x_proj = (series.float()[..., None] * p.weight_ih_l0[:, 0]
                   + (p.bias_ih_l0 + p.bias_hh_l0)).contiguous()
         eff = effective_lengths(lengths, b, t, self.mask_mode, series.device)
-        h = lstm_k.lstm_last_hidden(x_proj, p.weight_hh_l0.t().contiguous(), eff)
+        return x_proj, p.weight_hh_l0.t().contiguous(), eff
+
+    def forward(self, series: torch.Tensor,
+                lengths: torch.Tensor | None = None) -> torch.Tensor:
+        h = lstm_k.lstm_last_hidden(*self.recurrence_inputs(series, lengths))
         return self.fc(h).to(self.compute_dtype)
 
 

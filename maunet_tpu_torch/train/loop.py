@@ -4,9 +4,10 @@ Port of ``maunet_tpu/train/loop.py`` (``Trainer``, loop.py:83-378; reference
 src/train.py:120-331): an epoch loop over seeded, shuffled ``drop_last``
 batches with ``RandomFlip``, step logging to the same CSV file and columns,
 masked validation in eval mode at each epoch's end, a best and a last
-checkpoint, exact resume from the last one, and an ``epoch_callback``.
-Left out (ROADMAP.md): the device mesh and multi-host input, trackers,
-prediction plots, HPO and ``remat``.
+checkpoint, exact resume from the last one, an ``epoch_callback`` (which
+the CLI's HPO studies use) and trackers (``utils/tracking.py``), which get
+the step and epoch rows the JAX loop gives them.  Left out (ROADMAP.md): the
+device mesh and multi-host input, prediction plots and ``remat``.
 """
 
 from __future__ import annotations
@@ -49,13 +50,14 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, data_dir: str,
                  work_dir: str = "reports/training",
                  study_name: str = "urban-predictor", trial_id: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", trackers: list | None = None):
         self.cfg = cfg
         self.data_dir = data_dir
         self.work_dir = work_dir
         self.study_name = study_name
         self.trial_id = trial_id
         self.device = torch.device(device)
+        self.trackers = trackers or []
         os.makedirs(work_dir, exist_ok=True)
         self.loss_fn = get_loss_fn(cfg.loss)
         self.flip = RandomFlip(cfg.seed)
@@ -163,7 +165,7 @@ class Trainer:
                 if step % cfg.frequency_log == 0:
                     values = {k: float(v) for k, v in metrics.items()}
                     loss_val = values["total"]
-                    self.csv.log({
+                    row = {
                         "step": step, "epoch": epoch,
                         "batch_loss": loss_val,
                         "ema_loss": ema.update(loss_val),
@@ -172,7 +174,10 @@ class Trainer:
                         # sorted, as the JAX loop's metrics come out of jit
                         **{f"loss_{k}": v for k, v in sorted(values.items())
                            if k != "total"},
-                    })
+                    }
+                    self.csv.log(row)
+                    for tracker in self.trackers:
+                        tracker.log(row, step=step)
 
             n_samples = sum(bsz for _, bsz in step_losses)
             epoch_loss = sum(float(v) * bsz for v, bsz in step_losses)
@@ -181,8 +186,11 @@ class Trainer:
             val_loss = val["total"]
             log.info(f"Epoch {epoch + 1}/{epochs} | Train {train_loss:.4f} | "
                      f"Val {val_loss:.4f} | {time.time() - t_epoch:.1f}s")
-            history.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
-                            **{f"val_{k}": v for k, v in val.items() if k != "total"}})
+            epoch_row = {"epoch": epoch, "val_loss": val_loss,
+                         **{f"val_{k}": v for k, v in val.items() if k != "total"}}
+            history.append({"epoch": epoch, "train_loss": train_loss, **epoch_row})
+            for tracker in self.trackers:
+                tracker.log(epoch_row, step=state.step)
 
             if val_loss < best_val:
                 best_val = val_loss

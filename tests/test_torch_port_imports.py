@@ -48,13 +48,23 @@ EVALUATION_MODULES = [
 ]
 
 
+# The research command line's modules, likewise.
+RESEARCH_MODULES = [
+    "maunet_tpu_torch.cli", "maunet_tpu_torch.benchmarks",
+    "maunet_tpu_torch.analysis.sensitivity", "maunet_tpu_torch.analysis.gt_sensitivity",
+    "maunet_tpu_torch.analysis.plots", "maunet_tpu_torch.analysis.compare",
+    "maunet_tpu_torch.train.hpo", "maunet_tpu_torch.train.optuna_storage",
+    "maunet_tpu_torch.utils.tracking",
+]
+
+
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 46
-    assert not set(TRAINING_MODULES + EVALUATION_MODULES) - imported
+    assert len(imported) >= 56
+    assert not set(TRAINING_MODULES + EVALUATION_MODULES + RESEARCH_MODULES) - imported
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):
