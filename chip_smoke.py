@@ -27,7 +27,10 @@ Phases, one output line each (or a few for the kernel table):
    the U-Net's three convs and four upsamples, U-Net++'s eleven distinct
    base-32 convs (up to five parts plus the embedding term) and its four
    upsamples, and the LSTM at 16 lengths between T/2 and T; B also at the
-   sensitivity sweeps' batches (B = 50 and 41, one length each).  B, E and F
+   sensitivity sweeps' batches (B = 50 and 41, one length each).  A and C
+   also run at the planner app's shapes (B = 1, 512²: A's four convs, three
+   distinct shapes, and C's four upsamples, the last writing 64 MiB), with
+   their bounds and library calls beside them.  B, E and F
    are also held against their plain versions at the edges of what the
    kernels take (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
    B = 1, H = 50, 64 and 96, T = 64 and 828).  F is two launches, the gate
@@ -95,7 +98,28 @@ Phases, one output line each (or a few for the kernel table):
    iterations, best of 2) and eval suites on the card, each row printed on
    a line of its own (the train suite is left out to keep the script's
    time: the study below trains), and its ``train`` runs a one-trial study
-   of one epoch on phase 6's data, which must end ``COMPLETE``.
+   of one epoch on phase 6's data, which must end ``COMPLETE``;
+10. planner: the Urban Greening Planner app (``apps/planner.py``) runs
+   headless (``apps/headless.run_planner``) with ``--device cuda``, its
+   default ``--img-size 512``, ``--temporal-length 828``, an empty cache
+   directory (so the bundled demo tiles are resized 256 -> 512), a
+   ``models/`` directory holding phase 5's checkpoint, the scripted answer
+   ``Run Prediction`` and a canvas with a 256² block of trees painted over
+   the tile's centre.  It must run in cache-only mode, render 7 images and
+   call the canvas, give a finite mean-ΔT metric, launch A, B and C exactly
+   8, 2 and 8 times (two predicts), and prepare nothing after the first
+   predict.  The same two requests through the plain versions must agree
+   within 5% of the output's largest magnitude, as in phase 5; one
+   ``predict`` at 512² is timed (CUDA events around the forward on inputs on
+   the card, the host clock around the call);
+11. science loop: ``analysis.science.run_science_loop`` on the card at the
+   JAX defaults cut to 48/16/24 samples and 2 epochs (64², T = 828, base 16,
+   batch 8): the four ablation variants train, evaluate, sweep and go
+   through the statistics.  The four evaluation CSVs, the t-tests, the
+   nonparametric tests, ``summary.json`` (with the keys of the committed
+   ``reports/science/summary.json``) and ``REPORT.md`` must be written, every
+   slope finite, E, F's two launches and dW launched in training and D in
+   evaluation; ``cli stats`` over the four CSVs must exit 0.
 
 The line before the last is the kernel summary JSON: per kernel the launch
 count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
@@ -151,6 +175,7 @@ import contextlib
 import copy
 import csv
 import functools
+import glob
 import io
 import json
 import math
@@ -315,6 +340,8 @@ UNETPP_CONVS = ([(hw, cins, width, with_add)
                  for hw, cins, width, with_add in PAIR_BLOCKS[2:]]
                 + [((256, 256), (32,), 32, False), ((128, 128), (64,), 64, False)])
 EVAL_BATCH = 16
+# The planner app's default --img-size (maunet_tpu_torch/apps/planner.py).
+PLANNER_HW = 512
 # LSTM lengths of phase 3's evaluation-batch check of B: the synthetic split
 # draws each sample's from T/2..T.
 EVAL_LENGTHS = [828, 414, 700, 512, 621, 799, 450, 828, 733, 580, 666, 415, 777, 502, 640, 811]
@@ -336,7 +363,8 @@ LSTM_EDGE_CASES = [
 # U-Net++'s (base 32) four at the evaluation batch; the bottleneck's double
 # interpolation of a 250² tile at B=1 (15 -> 30, then the odd fix-up 30 ->
 # 31); U-Net++'s single odd resize (12 -> 25); one f32 case and one channel
-# count that takes the kernel's one-channel-per-thread path.
+# count that takes the kernel's one-channel-per-thread path; the planner's
+# four upsamples at B=1, 512² (the last writes 64 MiB).
 RESIZE_CASES = (
     ((8, 16, 16, 1024), (32, 32), torch.bfloat16, True),
     ((8, 32, 32, 512), (64, 64), torch.bfloat16, True),
@@ -354,7 +382,11 @@ RESIZE_CASES = (
     ((1, 30, 30, 1024), (31, 31), torch.bfloat16, False),
     ((2, 12, 12, 64), (25, 25), torch.bfloat16, False),
     ((2, 15, 15, 64), (30, 30), torch.float32, False),
-    ((2, 15, 15, 3), (30, 31), torch.bfloat16, False))
+    ((2, 15, 15, 3), (30, 31), torch.bfloat16, False),
+    ((1, 32, 32, 1024), (64, 64), torch.bfloat16, False),    # the planner, 512²
+    ((1, 64, 64, 512), (128, 128), torch.bfloat16, False),
+    ((1, 128, 128, 256), (256, 256), torch.bfloat16, False),
+    ((1, 256, 256, 128), (512, 512), torch.bfloat16, False))
 
 
 # D's cases in phase 3, as (shape, dtype, tolerance, classes made absent,
@@ -428,7 +460,8 @@ def check_kernels(table: KernelTable, dev) -> None:
     # second with two output-channel tiles); then every distinct conv of one
     # evaluation batch (B=16): the U-Net's three, and U-Net++'s eleven (each
     # block's conv1, with the embedding term at the decoder nodes, and the
-    # conv2 of each level).
+    # conv2 of each level); then the planner's four convs at B=1, 512² (three
+    # distinct shapes: both conv2s are 64 -> 64).
     bf = torch.bfloat16
     level0 = [(23,), (64,), (64, 128)]
     # (batch, (H, W), input parts' channels, cout, with add, on the path, note)
@@ -441,7 +474,9 @@ def check_kernels(table: KernelTable, dev) -> None:
                + [(EVAL_BATCH, (256, 256), cins, 64, False, False, " evaluation U-Net")
                   for cins in level0]
                + [(EVAL_BATCH, hw, cins, width, with_add, False, " evaluation U-Net++")
-                  for hw, cins, width, with_add in UNETPP_CONVS])
+                  for hw, cins, width, with_add in UNETPP_CONVS]
+               + [(1, (PLANNER_HW, PLANNER_HW), cins, 64, False, False, " planner")
+                  for cins in level0])
     for b, hw, cins, cout, with_add, on_path, note in a_cases:
         parts = [randn(b, *hw, c, dtype=bf) for c in cins]
         weights, scale, bias = conv_params(cins, cout)
@@ -1358,6 +1393,207 @@ def research_path(dev, tmpdir: str, data: str, checkpoint: str) -> None:
     print(f"research command line: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Launches of A, B and C in the planner's two predicts (the baseline and the
+# painted scenario), one forward each: SWEEP_LAUNCHES twice.
+PLANNER_LAUNCHES = {name: 2 * n for name, n in SWEEP_LAUNCHES.items()}
+
+
+def planner_path(dev, tmpdir: str, checkpoint: str) -> None:
+    """Phase 10: the planner app, headless, on the serving U-Net at its
+    default 512² with the bundled demo tiles and a painted canvas."""
+    import importlib.util
+
+    from maunet_tpu_torch.apps import headless, planner
+    from maunet_tpu_torch.apps.engine import CANVAS_RGB, PlannerEngine
+    from maunet_tpu_torch.apps.planner_core import load_demo_layers
+    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+
+    if importlib.util.find_spec("PIL") is None:
+        raise AssertionError("planner: PIL is not installed, so canvas_background cannot "
+                             "build the canvas image")
+    t_phase = time.perf_counter()
+    models = os.path.join(tmpdir, "models")
+    os.makedirs(models)
+    os.symlink(checkpoint, os.path.join(models, os.path.basename(checkpoint)))
+    # A block of trees painted over the demo tile's built-up centre.
+    hw = PLANNER_HW
+    canvas = np.zeros((hw, hw, 4), np.uint8)
+    block = (slice(hw // 4, 3 * hw // 4),) * 2
+    canvas[block + (slice(0, 3),)] = CANVAS_RGB[1]
+    canvas[block + (3,)] = 255
+    built = float((load_demo_layers(hw)["dw"][block] == 6).mean())
+
+    seen = {"inputs": [], "outputs": []}
+
+    class Recording(PlannerEngine):
+        def predict(self, inp):
+            out = super().predict(inp)
+            seen.setdefault("prepared", weights_prepared())
+            seen["engine"] = self
+            seen["inputs"].append(inp)
+            seen["outputs"].append(out)
+            return out
+
+    real_views = planner.prediction_views
+
+    def views(*a):
+        out = real_views(*a)
+        seen["delta"] = out[1]
+        return out
+
+    argv = ["--models-dir", models, "--cache-dir", os.path.join(tmpdir, "app_cache"),
+            "--device", str(dev), "--img-size", str(hw), "--temporal-length", str(T_SERIES)]
+    with mock.patch.object(planner, "PlannerEngine", Recording), \
+            mock.patch.object(planner, "prediction_views", views):
+        fns = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = headless.run_planner(argv, answers={"Run Prediction": True}, canvas_rgba=canvas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fns[name].launches for name in PLANNER_LAUNCHES}
+    images = st.rendered("image")
+    print(f"planner (headless, {hw}², bf16, demo tiles, a {hw // 2}² block of trees over "
+          f"{built:.0%} built land): {wall:.2f} s for the app's run (engine load, demo tiles "
+          f"resized 256 -> {hw}, two predicts), {len(images)} images, metric "
+          f"{st.rendered('metric')}, launches={launches}")
+    if not any("cache-only" in str(w) for w in st.rendered("warning")):
+        raise AssertionError("planner: not in cache-only mode")
+    if len(images) != 7 or st.rendered("st_canvas") != ["canvas"]:
+        raise AssertionError(f"planner: {len(images)} images, canvas {st.rendered('st_canvas')}")
+    if not all(img.shape[:2] == (hw, hw) for img in images):
+        raise AssertionError(f"planner: image shapes {[img.shape for img in images]}")
+    if not math.isfinite(seen.get("delta", math.nan)):
+        raise AssertionError(f"planner: the mean-ΔT metric is {seen.get('delta')}")
+    if launches != PLANNER_LAUNCHES:
+        raise AssertionError(f"planner: launches {launches}, want {PLANNER_LAUNCHES}")
+    require_nothing_prepared(seen["prepared"], "planner")
+    # From here on the engine's own predict, which records nothing.
+    engine, inputs, outputs = seen["engine"], seen["inputs"], seen["outputs"]
+    predict = functools.partial(PlannerEngine.predict, engine)
+    for label, (ndvi, lst) in zip(("baseline", "painted"), outputs):
+        check_outputs(f"planner {label}", ndvi, lst, hw)
+
+    # The same two requests through the plain versions.
+    with mock.patch.object(packed_vgg, "conv3x3_fused", packed_vgg.conv3x3_fused_plain), \
+            mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
+            mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain):
+        plain = [predict(inp) for inp in inputs]
+    s_ = engine.stats
+
+    def normalized(outs):
+        return np.stack([np.stack([nd, (ls - s_.temp_mean) / s_.temp_std]) for nd, ls in outs])
+
+    got, want = normalized(outputs), normalized(plain)
+    diff, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    print(f"planner vs plain versions: max_abs_diff={diff:.4e} (output max |x| {scale:.4f}, "
+          f"tol {0.05 * max(scale, 1.0):.4f}); mean ΔT {seen['delta']:+.4f} °C")
+    if diff > 0.05 * max(scale, 1.0):
+        raise AssertionError("planner disagrees with its plain versions")
+
+    # One predict at 512²: the forward on card-resident inputs (CUDA events),
+    # and the call from host arrays to host arrays (host clock).
+    inp = inputs[1]
+    args = [torch.as_tensor(a, device=dev) for a in
+            (inp.maps, inp.temp_series, inp.metadata, inp.temp_lengths)]
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: engine.model(*args))
+    host_ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(inp)
+        torch.cuda.synchronize()
+        if i >= 1:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"planner predict (1 x {hw}², bf16): forward {forward_ms:.3f} ms (CUDA events, "
+          f"median of 10, inputs on the card); predict {statistics.median(host_ms):.3f} ms "
+          f"(host clock, median of {len(host_ms)}, {inp.maps.nbytes / 2**20:.0f} MiB of maps "
+          f"copied in)")
+    require_nothing_prepared(seen["prepared"], "planner predict")
+    print(f"planner phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 11's cut of the science loop: the JAX defaults but the sample counts
+# and epochs (maunet_tpu/analysis/science.py:132-144: 192/32/48, 64 epochs).
+SCIENCE = {"hw": 64, "temporal_len": T_SERIES, "base_filters": 16, "batch_size": 8,
+           "epochs": 2, "samples": {"train": 48, "val": 16, "test": 24}}
+SCIENCE_TRAINING = ("lstm_forward_stash", "lstm_gate_terms", "lstm_backward", "lstm_dw")
+
+
+def structure(value):
+    """The nested key structure of a summary."""
+    if isinstance(value, dict):
+        return {k: structure(v) for k, v in value.items()}
+    return "number" if isinstance(value, (int, float)) else type(value).__name__
+
+
+def science_path(dev, tmpdir: str) -> None:
+    """Phase 11: the ablation science loop at a cut size, then ``cli stats``."""
+    from maunet_tpu_torch import cli
+    from maunet_tpu_torch.analysis import science
+    from maunet_tpu_torch.evaluate import evaluator
+    from maunet_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    fns = reset_launches()
+    launched = {"training": dict.fromkeys(fns, 0), "evaluation": dict.fromkeys(fns, 0)}
+
+    def counted(kind, fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            before = {name: f.launches for name, f in fns.items()}
+            try:
+                return fn(*a, **k)
+            finally:
+                for name, f in fns.items():
+                    launched[kind][name] += f.launches - before[name]
+        return run
+
+    work = os.path.join(tmpdir, "science")
+    with mock.patch.object(loop.Trainer, "train", counted("training", loop.Trainer.train)), \
+            mock.patch.object(evaluator, "evaluate_checkpoint",
+                              counted("evaluation", evaluator.evaluate_checkpoint)):
+        summary = science.run_science_loop(work_dir=work, device=dev, **SCIENCE)
+    wall = time.perf_counter() - t_phase
+    csvs = sorted(glob.glob(os.path.join(work, "tests", "*_evaluation.csv")))
+    for name in ("comparative_ttests.csv", "nonparametric_tests.csv", "summary.json",
+                 "REPORT.md"):
+        if not os.path.exists(os.path.join(work, name)):
+            raise AssertionError(f"science loop: {name} is missing")
+    if len(csvs) != 4:
+        raise AssertionError(f"science loop: {len(csvs)} evaluation CSVs")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "reports", "science", "summary.json")) as f:
+        if structure(summary) != structure(json.load(f)):
+            raise AssertionError("science loop: the summary's keys differ from the committed run's")
+    sens = summary["sensitivity"]
+    slopes = [sens[k]["slope_per_degree"] for k in
+              ("emb_lat_response", "noemb_lat_response", "gt_lat_response")] + [
+        sens[k]["slope_per_zunit"] for k in
+        ("tempemb_temporal_response", "noemb_temporal_response")]
+    if not all(map(math.isfinite, slopes)):
+        raise AssertionError(f"science loop: slopes {slopes}")
+    training = {n: launched["training"][n] for n in SCIENCE_TRAINING}
+    evaluation = launched["evaluation"]["masked_class_sums"]
+    mae = {n: round(v["lst_mae_c"], 3) for n, v in summary["variants"].items()}
+    print(f"science loop ({SCIENCE['samples']} tiles of {SCIENCE['hw']}², "
+          f"T = {SCIENCE['temporal_len']}, base {SCIENCE['base_filters']}, "
+          f"{SCIENCE['epochs']} epochs, four variants): {wall:.1f} s; LST MAE {mae}; "
+          f"significant wins over noemb {summary['significant_lst_wins_over_noemb']}; "
+          f"slopes (emb, noemb, gt per degree; tempemb, noemb per z-unit) "
+          f"{[float(f'{x:.4g}') for x in slopes]}; training launches {training}, "
+          f"D in evaluation {evaluation}")
+    if 0 in training.values() or evaluation == 0:
+        raise AssertionError("science loop: a kernel of its path was not launched")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["stats", *csvs, "--output-dir", os.path.join(work, "stats")])
+    if rc != 0 or not os.path.exists(os.path.join(work, "stats", "comparative_ttests.csv")):
+        raise AssertionError(f"cli stats: exit {rc}")
+    print(f"cli stats over the four CSVs: exit {rc}; science phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -1413,6 +1649,8 @@ def main() -> int:
         launches["evaluation"] = eval_path(dev, tmpdir, data, checkpoints)
         launches["pair"] = pair_path(dev, checkpoints)
         research_path(dev, tmpdir, data, checkpoints["unet"])
+        planner_path(dev, tmpdir, checkpoints["unet"])
+        science_path(dev, tmpdir)
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[path][name], **table.summary(name)}

@@ -11,11 +11,17 @@ lat-lon heatmaps with the original location marked).
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
 import numpy as np
 
 PALETTE = ["#2D3142", "#E1DAAE", "#058ED9", "#848FA2", "#CC2D35"]
+
+
+def available() -> bool:
+    """Whether matplotlib can be imported here (the GPU host may lack it)."""
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def _styled_ax(figsize=(10, 6)):

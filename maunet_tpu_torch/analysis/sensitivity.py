@@ -21,9 +21,9 @@ The evaluation CSV is read with ``csv`` (the evaluator writes NaN as an empty
 field), and :func:`select_samples` keeps the pandas semantics the JAX
 package's selection has: city means over the ``overall`` rows with NaN
 skipped, NaN sorted last, a city's median row at ``len // 2`` of its
-RMSE-sorted rows, samples in the CSV's order, a seeded subsample.  On equal
-RMSEs the two may pick other rows: pandas' default sort is not stable, this
-one is.
+RMSE-sorted rows, samples in the CSV's order, a seeded subsample.  Both
+rankings sort as ``sort_values`` does, so equal RMSEs pick the same rows
+(:func:`_pandas_order`).
 """
 
 from __future__ import annotations
@@ -77,8 +77,15 @@ def read_eval_csv(path: str) -> list[dict]:
     return rows
 
 
-def _nan_last(value: float) -> tuple[bool, float]:
-    return (math.isnan(value), 0.0 if math.isnan(value) else value)
+def _pandas_order(values: list[float]) -> list[int]:
+    """The positions of ``values`` in the order pandas' ``sort_values`` puts
+    them (its ``nargsort``): numpy's default quicksort over the non-NaN
+    values, which is not stable past 16 of them, then the NaN in order."""
+    v = np.asarray(values, dtype=np.float64)
+    nan = np.isnan(v)
+    kept = np.flatnonzero(~nan)
+    return np.concatenate([kept[np.argsort(v[kept], kind="quicksort")],
+                           np.flatnonzero(nan)]).tolist()
 
 
 def _nanmean(values: list[float]) -> float:
@@ -97,13 +104,14 @@ def select_samples(rows: list[dict], max_samples: int = 1000, seed: int = 0):
     by_city: dict[str, list[float]] = {}
     for r in overall:
         by_city.setdefault(r["city"], []).append(r["rmse"])
-    ranked = sorted(sorted(by_city), key=lambda c: _nan_last(_nanmean(by_city[c])))
+    cities = sorted(by_city)                  # groupby's key order
+    ranked = [cities[i] for i in _pandas_order([_nanmean(by_city[c]) for c in cities])]
     best_cities, worst_cities = ranked[:5], ranked[-5:]
 
     def median_sample(city):
-        city_rows = sorted((r for r in overall if r["city"] == city),
-                           key=lambda r: _nan_last(r["rmse"]))
-        return city_rows[len(city_rows) // 2]["sample_idx"]
+        city_rows = [r for r in overall if r["city"] == city]
+        order = _pandas_order([r["rmse"] for r in city_rows])
+        return city_rows[order[len(order) // 2]]["sample_idx"]
 
     target_indices, groups = [], {}
     for city in best_cities:

@@ -11,6 +11,8 @@ touches a model takes ``--device`` (``cuda`` unless asked otherwise):
     python -m maunet_tpu_torch.cli sensitivity CKPT.pth EVAL_CSV --data-dir D
     python -m maunet_tpu_torch.cli gt-sensitivity --data-dir D
     python -m maunet_tpu_torch.cli compare-sensitivity DIR
+    python -m maunet_tpu_torch.cli stats EVAL_CSV [EVAL_CSV ...]
+    python -m maunet_tpu_torch.cli science-loop [--work-dir D --hw 64 --epochs 6]
     python -m maunet_tpu_torch.cli export-optuna STUDY.json DB
     python -m maunet_tpu_torch.cli import-optuna DB STUDY.json
 
@@ -166,12 +168,28 @@ def cmd_train(args) -> int:
     return 0
 
 
+def figures_default(requested, default, off, what: str):
+    """``requested`` where it was given (a missing matplotlib then raises
+    where the figures are drawn); else ``default`` where matplotlib is
+    installed, and ``off`` with one logged line where it is not."""
+    from maunet_tpu_torch.analysis import plots
+
+    if requested is not None:
+        return requested
+    if plots.available():
+        return default
+    log.info(f"matplotlib is not installed: {what}")
+    return off
+
+
 def cmd_evaluate(args) -> int:
     from maunet_tpu_torch.evaluate.evaluator import evaluate_checkpoint
 
+    n_visualize = figures_default(args.n_visualize, 10, 0,
+                                  "evaluate draws no figures (--n-visualize 0)")
     evaluate_checkpoint(
         args.checkpoint_path, load_cfg(args), data_dir=args.data_dir,
-        study_name=args.study_name, jobid=args.jobid, n_visualize=args.n_visualize,
+        study_name=args.study_name, jobid=args.jobid, n_visualize=n_visualize,
         output_dir=args.output_dir, batch_size=args.batch_size,
         precision=args.precision, device=args.device)
     return 0
@@ -211,9 +229,11 @@ def cmd_bench(args) -> int:
 def cmd_sensitivity(args) -> int:
     from maunet_tpu_torch.analysis.sensitivity import run_sensitivity
 
+    make_plots = figures_default(args.plots, True, False,
+                                 "sensitivity writes its JSON only (--no-plots)")
     run_sensitivity(args.checkpoint_path, args.eval_csv, load_cfg(args),
                     data_dir=args.data_dir, output_dir=args.output_dir,
-                    max_samples=args.max_samples, make_plots=args.plots,
+                    max_samples=args.max_samples, make_plots=make_plots,
                     device=args.device)
     return 0
 
@@ -226,9 +246,32 @@ def cmd_gt_sensitivity(args) -> int:
 
 
 def cmd_compare_sensitivity(args) -> int:
+    from maunet_tpu_torch.analysis import plots
     from maunet_tpu_torch.analysis.compare import compare_sensitivity
 
+    if not plots.available():
+        print("compare-sensitivity only draws figures, and matplotlib is not installed",
+              file=sys.stderr)
+        return 1
     compare_sensitivity(args.data_dir, output_dir=args.output_dir)
+    return 0
+
+
+def cmd_stats(args) -> int:
+    from maunet_tpu_torch.analysis.stats import comparative_analysis, interpret_metrics
+
+    if len(args.csvs) == 1:
+        interpret_metrics(args.csvs[0], output_dir=args.output_dir)
+    else:
+        comparative_analysis(args.csvs, output_dir=args.output_dir)
+    return 0
+
+
+def cmd_science(args) -> int:
+    from maunet_tpu_torch.analysis.science import run_science_loop
+
+    run_science_loop(work_dir=args.work_dir, hw=args.hw, epochs=args.epochs,
+                     device=args.device)
     return 0
 
 
@@ -293,7 +336,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--data-dir", required=True)
     sp.add_argument("--study-name", default="test")
     sp.add_argument("--jobid", default="")
-    sp.add_argument("--n-visualize", type=int, default=10)
+    sp.add_argument("--n-visualize", type=int, default=None,
+                    help="figures to draw (default 10 where matplotlib is installed, else 0)")
     sp.add_argument("--batch-size", type=int, default=None)
     sp.add_argument("--output-dir", default="reports/tests")
     sp.add_argument("--precision", default="bfloat16", choices=["bfloat16", "float32"],
@@ -330,8 +374,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--data-dir", required=True)
     sp.add_argument("--output-dir", default="reports/sensitivity")
     sp.add_argument("--max-samples", type=int, default=1000)
-    sp.add_argument("--plots", action=argparse.BooleanOptionalAction, default=True,
-                    help="draw the figures after the JSON (needs matplotlib)")
+    sp.add_argument("--plots", action=argparse.BooleanOptionalAction, default=None,
+                    help="draw the figures after the JSON (default: where matplotlib "
+                         "is installed)")
     sp.set_defaults(fn=cmd_sensitivity)
 
     sp = sub.add_parser("gt-sensitivity", help="ground-truth sensitivity binning")
@@ -344,6 +389,20 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("data_dir")
     sp.add_argument("--output-dir", default="reports/sensitivity/comparison")
     sp.set_defaults(fn=cmd_compare_sensitivity)
+
+    sp = sub.add_parser("stats", help="statistical tests on evaluation CSVs")
+    sp.add_argument("csvs", nargs="+")
+    sp.add_argument("--output-dir", default="reports/statistical_tests")
+    sp.set_defaults(fn=cmd_stats)
+
+    sp = sub.add_parser("science-loop",
+                        help="planted-signal ablation: train 4 variants, "
+                             "evaluate, stats, sensitivity")
+    device(sp)
+    sp.add_argument("--work-dir", default="reports/science")
+    sp.add_argument("--hw", type=int, default=64)
+    sp.add_argument("--epochs", type=int, default=6)
+    sp.set_defaults(fn=cmd_science)
 
     sp = sub.add_parser("export-optuna",
                         help="JSON HPO study -> optuna SQLite DB (optuna-dashboard reads it)")

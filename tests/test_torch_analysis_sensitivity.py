@@ -174,6 +174,34 @@ def test_select_samples_matches_jax(tmp_path, n_samples, max_samples, nan_at):
             want[3][want[3]["sample_idx"] == idx].iloc[0]["city"]).title()
 
 
+def _tied_rows(seed):
+    """Rows of 40 cities whose RMSEs take three values, so city means tie;
+    one city has 24 samples, so its own rows tie past numpy's 16-element
+    insertion sort.  Sample order and city order scrambled."""
+    rng = np.random.default_rng(seed)
+    rows, idx = [], 0
+    for city in rng.permutation(40):
+        for _ in range(24 if city == 0 else int(rng.integers(1, 3))):
+            rmse = repr(float(rng.choice([1.5, 2.5, 3.5])))
+            for channel in ("after_ndvi", "after_temp"):
+                rows.append({"sample_idx": idx, "channel": channel, "dw_class": "overall",
+                             "mae": "0.5", "rmse": rmse, "city": f"city{city:02d}"})
+            idx += 1
+    return rows
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_select_samples_matches_jax_on_tied_rmses(tmp_path, seed):
+    """Equal RMSEs over more than 16 cities (and 16 rows of one city) pick
+    the samples pandas' unstable default sort picks, not a stable sort's."""
+    path = str(tmp_path / "eval.csv")
+    _write_csv(path, _tied_rows(seed))
+    got = sensitivity.select_samples(sensitivity.read_eval_csv(path), 1000, seed=5)
+    want = jax_sensitivity.select_samples(pd.read_csv(path), 1000, seed=5)
+    assert got[:3] == want[:3]
+    assert sensitivity._pandas_order([2.0, 1.0, math.nan, 1.0]) == [1, 3, 0, 2]
+
+
 @pytest.fixture(scope="module")
 def two_sample_csv(case, tmp_path_factory):
     """The evaluation CSV cut to two samples of two cities, both highlighted."""

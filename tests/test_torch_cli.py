@@ -44,12 +44,14 @@ def parser():
     ["compare-sensitivity", "dir"],
     ["export-optuna", "s.json", "s.db"],
     ["import-optuna", "s.db", "s.json", "--study-name", "s"],
+    ["stats", "a_evaluation.csv", "b_evaluation.csv", "--output-dir", "o"],
+    ["science-loop", "--work-dir", "w", "--hw", "32", "--epochs", "2"],
 ])
 def test_every_subcommand_parses(parser, argv):
     args = parser.parse_args(argv)
     assert callable(args.fn)
     # Every subcommand that touches a model runs on the card unless asked.
-    if argv[0] in ("train", "evaluate", "bench", "sensitivity"):
+    if argv[0] in ("train", "evaluate", "bench", "sensitivity", "science-loop"):
         assert args.device == "cuda"
         assert parser.parse_args(argv + ["--device", "cpu"]).device == "cpu"
 
@@ -221,3 +223,53 @@ def test_sensitivity_commands_write_the_direct_calls_files(eval_csv, data, check
     assert cli.main(["compare-sensitivity", out, "--output-dir", cmp_dir]) == 0
     assert {"compare_latitude_after_temp.pdf", "avg_heatmap_emb_after_ndvi.pdf"} <= set(
         os.listdir(cmp_dir))
+
+
+def test_figure_defaults_follow_matplotlib(parser, monkeypatch):
+    """Unset, the figure options are on where matplotlib is installed and
+    off where it is not; a value given stands either way."""
+    args = parser.parse_args(["evaluate", "c.pth", "--data-dir", "d"])
+    assert args.n_visualize is None
+    assert parser.parse_args(["sensitivity", "c.pth", "e.csv", "--data-dir", "d"]).plots is None
+    assert cli.figures_default(None, 10, 0, "x") == 10
+    assert cli.figures_default(3, 10, 0, "x") == 3
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert cli.figures_default(None, 10, 0, "x") == 0
+    assert cli.figures_default(None, True, False, "x") is False
+    assert cli.figures_default(True, True, False, "x") is True
+
+
+def test_default_commands_run_without_matplotlib(eval_csv, data, checkpoint, root,
+                                                 monkeypatch, capsys):
+    """Where matplotlib is absent (the GPU host), ``evaluate`` with its
+    defaults writes both CSVs and ``sensitivity`` its JSON; an explicit
+    request for figures still raises; ``compare-sensitivity``, which only
+    draws, exits non-zero with one line naming matplotlib."""
+    from maunet_tpu_torch.analysis import sensitivity
+
+    monkeypatch.setattr(sensitivity, "HEAT_STEPS", 4)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    common = ["--data-dir", data, "--device", "cpu", "-o", f"dataset.temporal_length={T}"]
+    out = str(root / "eval_bare")
+    assert cli.main(["evaluate", checkpoint, "--study-name", "c", "--jobid", "1",
+                     "--precision", "float32", "--output-dir", out, *common]) == 0
+    assert sorted(os.listdir(out)) == ["c_unet_emb_3_job1_evaluation.csv",
+                                       "c_unet_emb_3_job1_info.csv"]
+    with open(os.path.join(out, "c_unet_emb_3_job1_evaluation.csv")) as a, open(eval_csv) as b:
+        assert a.read() == b.read()
+    with pytest.raises(ImportError):
+        cli.main(["evaluate", checkpoint, "--n-visualize", "1", "--output-dir",
+                  str(root / "eval_figures"), *common])
+
+    sens = str(root / "sens_default_bare")
+    assert cli.main(["sensitivity", checkpoint, eval_csv, "--output-dir", sens, *common]) == 0
+    assert os.listdir(sens) == ["sensitivity_data_emb.json"]
+    with pytest.raises(ImportError):
+        cli.main(["sensitivity", checkpoint, eval_csv, "--plots", "--output-dir",
+                  str(root / "sens_figures"), *common])
+
+    capsys.readouterr()
+    assert cli.main(["compare-sensitivity", sens, "--output-dir", str(root / "cmp_bare")]) == 1
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and "matplotlib" in err[0]
+    assert not os.path.exists(root / "cmp_bare")

@@ -1,5 +1,6 @@
-"""The PyTorch port stands on torch and numpy alone, and never computes a
-CUDA call on the CPU."""
+"""The PyTorch port stands on torch and numpy alone (pandas, scipy, PIL,
+cv2 and matplotlib are imported inside the functions that use them), and
+never computes a CUDA call on the CPU."""
 
 import os
 import subprocess
@@ -16,7 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "orbax", "yaml", "pandas", "matplotlib"):
+for name in ("jax", "flax", "optax", "orbax", "yaml", "pandas", "matplotlib", "scipy",
+             "PIL", "cv2", "streamlit"):
     sys.modules[name] = None          # any import of them raises ImportError
 import maunet_tpu_torch
 for mod in pkgutil.walk_packages(maunet_tpu_torch.__path__, "maunet_tpu_torch."):
@@ -58,13 +60,23 @@ RESEARCH_MODULES = [
 ]
 
 
+# The planner apps' and the science loop's modules, likewise.
+APP_MODULES = [
+    "maunet_tpu_torch.data.tiles", "maunet_tpu_torch.apps.planner_core",
+    "maunet_tpu_torch.apps.gee_fetch", "maunet_tpu_torch.apps.headless",
+    "maunet_tpu_torch.apps.planner", "maunet_tpu_torch.analysis.stats",
+    "maunet_tpu_torch.analysis.science",
+]
+
+
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 56
-    assert not set(TRAINING_MODULES + EVALUATION_MODULES + RESEARCH_MODULES) - imported
+    assert len(imported) >= 63
+    assert not set(TRAINING_MODULES + EVALUATION_MODULES + RESEARCH_MODULES
+                   + APP_MODULES) - imported
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):
