@@ -30,7 +30,9 @@ Phases, one output line each (or a few for the kernel table):
    sensitivity sweeps' batches (B = 50 and 41, one length each).  A and C
    also run at the planner app's shapes (B = 1, 512²: A's four convs, three
    distinct shapes, and C's four upsamples, the last writing 64 MiB), with
-   their bounds and library calls beside them.  B, E and F
+   their bounds and library calls beside them; A also as
+   ``train_fused_conv``'s forward (B = 16, 256², no epilogue, weights
+   prepared at every call) beside cuDNN's forward conv.  B, E and F
    are also held against their plain versions at the edges of what the
    kernels take (``LSTM_EDGE_CASES``: lengths 0, 1 and T in one batch,
    B = 1, H = 50, 64 and 96, T = 64 and 828).  F is two launches, the gate
@@ -65,7 +67,18 @@ Phases, one output line each (or a few for the kernel table):
    with the kernels and one with the plain versions patched in are compared;
    the best checkpoint then serves a ``predict`` through ``PlannerEngine``;
    and the train step is timed (host clock around synchronised steps).  A
-   deep-supervised U-Net++ (base 32) then trains one epoch on the same data;
+   deep-supervised U-Net++ (base 32) then trains one epoch on the same data.
+   The Trainers draw no prediction plot where matplotlib is missing (one
+   logged line each, no warning) and one PNG at step 0 where it exists;
+6b. training variants: from one seeded state and one batch of the same
+   data, one train step at ``TrainConfig``'s defaults three ways: plain,
+   with ``train_fused_conv`` (A must launch exactly 4 times, the U-Net's
+   level-0 convs, forward only) and with ``remat`` (the same loss bits, the
+   running statistics updated once); each step's time (median of 5
+   synchronised steps) and peak memory are printed.  A's wrapper must still
+   refuse an input that needs a gradient outside the autograd ``Function``.
+   Then one U-Net++ (base 32) step with ``train_fused_conv``: A exactly 8
+   times (the 64-channel level-1 convs);
 7. evaluation path: the split's 40 test samples (256², T = 828; batches of
    16, so the last is padded) go through ``evaluate_checkpoint`` on the card
    for two seeded ``.pth`` checkpoints in the reference layout: the serving
@@ -165,7 +178,12 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
     of one-ulp flips), the Laplacian variances within 5e-2 (a second
     difference amplifies the flips), NaN and ``class_present`` in the same
     places;
-  pair configuration vs two launches per block: as the serving path, 5%.
+  pair configuration vs two launches per block: as the serving path, 5%;
+  train step with train_fused_conv vs plain: as the kernels-vs-plain step,
+    loss within 1% and gradient global norm within 5%;
+  train step with remat vs plain: the same loss bits and running
+    statistics; each gradient within 1e-2 of its tensor's largest magnitude
+    (cuDNN's dgrad and wgrad may sum in another order when run again).
 TF32 is off for cuDNN and matmuls, so the plain versions run in full f32.
 """
 
@@ -296,6 +314,14 @@ def conv_work(b: int, hw, cins, cout: int, with_add: bool):
     return nbytes, 2 * b * h * w * 9 * cin * cout, "bf16"
 
 
+def train_conv_work(b: int, cins, cout: int):
+    """A train_fused_conv forward at 256²: bf16 parts and output and the f32
+    weight slices, each once, and its bf16 multiply-adds (no epilogue)."""
+    cin = sum(cins)
+    nbytes = b * 256 * 256 * (cin + cout) * 2 + 9 * cin * cout * 4
+    return nbytes, 2 * b * 256 * 256 * 9 * cin * cout, "bf16"
+
+
 def cudnn_block(parts, convs, add):
     """The library yardstick of the conv kernels: for each (weights, scale,
     bias) of ``convs`` a cuDNN bf16 conv over the concatenated parts with its
@@ -340,6 +366,15 @@ UNETPP_CONVS = ([(hw, cins, width, with_add)
                  for hw, cins, width, with_add in PAIR_BLOCKS[2:]]
                 + [((256, 256), (32,), 32, False), ((128, 128), (64,), 64, False)])
 EVAL_BATCH = 16
+# TrainConfig's batch, and the input channels of the convs that take A in
+# one of its train steps with train_fused_conv (the U-Net's conv0_0 and
+# conv0_1, base 64; conv0_1.conv1 reads [64 skip | 128 upsampled]).
+TRAIN_BATCH = 16
+TRAIN_FUSED_CONVS = ((23,), (64,), (64, 128))
+# A's launches in one such step (forward only: the backward is cuDNN's):
+# the U-Net's four level-0 convs at base 64; U-Net++'s eight level-1 ones at
+# base 32 (its 32-channel row is lane-packed in JAX, which sends it to XLA).
+TRAIN_FUSED_LAUNCHES = {"unet": 4, "unet++": 8}
 # The planner app's default --img-size (maunet_tpu_torch/apps/planner.py).
 PLANNER_HW = 512
 # LSTM lengths of phase 3's evaluation-batch check of B: the synthetic split
@@ -498,6 +533,33 @@ def check_kernels(table: KernelTable, dev) -> None:
         if on_path:
             row = table.rows["conv3x3_fused"]
             row["unprepared_ms"] = row.get("unprepared_ms", 0.0) + unprepared_ms
+
+    # A as train_fused_conv's forward (ops/train_conv.py): the four level-0
+    # convs of a train step at TrainConfig's defaults (B = 16, 256²; conv0_0's
+    # and conv0_1's 64 -> 64 share a shape), no epilogue, weights prepared at
+    # every call as the autograd Function does; beside cuDNN's forward conv.
+    for cins in TRAIN_FUSED_CONVS:
+        parts = [randn(TRAIN_BATCH, 256, 256, c, dtype=bf) for c in cins]
+        weights = conv_params(cins, 64)[0]
+        cat_w = torch.cat(weights, 1).to(bf).contiguous(memory_format=torch.channels_last)
+
+        def cudnn_forward():
+            x = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+            return F.conv2d(x.permute(0, 3, 1, 2), cat_w, padding=1).permute(0, 2, 3, 1)
+
+        label = f"{[(TRAIN_BATCH, 256, 256, c) for c in cins]}->64 training, no epilogue"
+        table.check("conv3x3_fused", label,
+                    lambda: packed_vgg.conv3x3_fused(parts, weights),
+                    lambda: packed_vgg.conv3x3_fused_plain(parts, weights),
+                    1e-2, 1e-2, False, train_conv_work(TRAIN_BATCH, cins, 64), cudnn_forward)
+        # How much of that is the preparation of the weights.
+        prepared = packed_vgg.prepare_conv3x3(weights)
+        if not torch.equal(packed_vgg.conv3x3_fused(parts, prepared),
+                           packed_vgg.conv3x3_fused(parts, weights)):
+            raise AssertionError(f"conv3x3_fused {label}: prepared and raw weights differ")
+        prepared_ms = cuda_ms(lambda: packed_vgg.conv3x3_fused(parts, prepared))
+        print(f"kernel conv3x3_fused {label}: prepared_ms={prepared_ms:.4f} (weights prepared "
+              f"once), same bits as the call above")
 
     # G: every eligible block of the pair configuration at B=8, against its
     # plain version, against the two A launches it replaces, and beside
@@ -946,11 +1008,13 @@ def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
     work = os.path.join(tmpdir, "train")
     fns = reset_launches()
     t0 = time.perf_counter()
-    r1 = Trainer(cfg, data, work_dir=work, study_name="smoke", device=dev).train(epochs=1)
-    trainer = Trainer(cfg, data, work_dir=work, study_name="smoke", device=dev)
-    r2 = trainer.train(epochs=2, resume=True)
+    with captured_log("maunet_tpu_torch.train.loop") as records:
+        r1 = Trainer(cfg, data, work_dir=work, study_name="smoke", device=dev).train(epochs=1)
+        trainer = Trainer(cfg, data, work_dir=work, study_name="smoke", device=dev)
+        r2 = trainer.train(epochs=2, resume=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check_plot_lines(records, trainers=2, plot_steps=1, work=work)
     launches = {name: fn.launches for name, fn in fns.items()}
     steps_per_epoch = SAMPLES["train"] // cfg.batch_size
     with open(os.path.join(work, "smoke_trial0_train_log.csv")) as f:
@@ -1024,6 +1088,173 @@ def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
           f"{cfg.loss}): {ms:.3f} ms/step, {cfg.batch_size / ms * 1e3:.1f} tiles/s "
           f"(host clock around synchronised steps, median of {len(host_ms)} after 2 warm-up)")
     return launches
+
+
+@contextlib.contextmanager
+def captured_log(name: str):
+    """The records that logger ``name`` emits at INFO and above within."""
+    import logging
+
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger(name)
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def check_plot_lines(records, trainers: int, plot_steps: int, work: str) -> None:
+    """Prediction plots at their default frequency (step 0 of each run):
+    where matplotlib is missing, one logged line per Trainer, no figure and
+    no warning; where it is installed, one PNG per plot step."""
+    from importlib.util import find_spec
+
+    lines = [r.getMessage() for r in records if "matplotlib" in r.getMessage()]
+    warnings = [r.getMessage() for r in records if r.levelno >= 30]
+    pngs = glob.glob(os.path.join(work, "visualizations", "*.png"))
+    if find_spec("matplotlib") is None:
+        ok = len(lines) == trainers and not warnings and not pngs
+        print(f"prediction plots: {lines[0] if lines else 'no line'} "
+              f"({len(lines)} lines for {trainers} Trainers, {len(warnings)} warnings)")
+    else:
+        ok = not lines and not warnings and len(pngs) == plot_steps
+        print(f"prediction plots: {len(pngs)} PNGs for {plot_steps} plot steps")
+    if not ok:
+        raise AssertionError(f"prediction plots: lines {lines}, warnings {warnings}, "
+                             f"PNGs {pngs}")
+
+
+def train_variants_path(dev, data: str) -> None:
+    """Phase 6b: from one seeded state and one batch at TrainConfig's
+    defaults, one train step three ways, plain, with ``train_fused_conv``
+    and with ``remat``; then a U-Net++ step with ``train_fused_conv``."""
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.losses import get_loss_fn
+    from maunet_tpu_torch.models import UrbanPredictor
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.train.optimizers import make_optimizer
+    from maunet_tpu_torch.train.state import TrainState
+    from maunet_tpu_torch.train.steps import train_step
+
+    t_phase = time.perf_counter()
+    ds = NpzDataset(os.path.join(data, "train"), T_SERIES)
+    batch = to_device(host_tensors(next(make_batches(ds, TRAIN_BATCH)), pin=True), dev)
+
+    def step_three_ways(cfg: TrainConfig, variants: dict) -> dict:
+        """For each variant (UrbanPredictor flags): the metrics, gradients,
+        buffers and A's launches of one step from the same weights, then the
+        median of 5 synchronised steps and the peak memory over them."""
+        loss_fn = get_loss_fn(cfg.loss)
+        kw = dict(model_type=cfg.model_type, out_channels=len(cfg.target_channels),
+                  temporal_dim=cfg.temporal_dim, meta_dim=cfg.meta_dim,
+                  lstm_dim=cfg.lstm_hidden, base_filters=cfg.base_filters,
+                  meta_features=cfg.nb_metadata_features,
+                  deep_supervision=cfg.deep_supervision)
+        weights = UrbanPredictor(**kw, generator=torch.Generator().manual_seed(SEED)).state_dict()
+        out = {}
+        for name, flags in variants.items():
+            model = UrbanPredictor(**kw, **flags)
+            model.load_state_dict(weights)
+            model.to(dev)
+            state = TrainState(model, make_optimizer(model.parameters(), cfg.optimizer,
+                                                     cfg.learning_rate, cfg.weight_decay,
+                                                     cfg.momentum), 0)
+            reset_launches()
+            metrics = train_step(state, batch, loss_fn)
+            torch.cuda.synchronize()
+            a_launches = packed_vgg.conv3x3_fused.launches
+            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+            buffers = {k: v.clone() for k, v in model.named_buffers()}
+            torch.cuda.reset_peak_memory_stats(dev)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(state, batch, loss_fn)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = dict(metrics=metrics, grads=grads, buffers=buffers,
+                             a_launches=a_launches, ms=statistics.median(times),
+                             peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            del state, model
+            torch.cuda.empty_cache()
+        return out
+
+    cfg = TrainConfig()
+    runs = step_three_ways(cfg, {"plain": {}, "train_fused_conv": {"train_fused_conv": True},
+                                 "remat": {"remat": True}})
+    plain = runs["plain"]
+    for name, run in runs.items():
+        loss, want = float(run["metrics"]["total"]), float(plain["metrics"]["total"])
+        norm, want_norm = float(run["metrics"]["grad_norm"]), float(plain["metrics"]["grad_norm"])
+        print(f"train step {name}: loss {loss:.6f} (plain {want:.6f}, rel "
+              f"{abs(loss - want) / abs(want):.3e}), grad_norm {norm:.6f} (plain "
+              f"{want_norm:.6f}), A launches {run['a_launches']}, {run['ms']:.3f} ms/step "
+              f"(median of 5 synchronised steps), peak {run['peak_gib']:.3f} GiB allocated")
+    if plain["a_launches"] or runs["remat"]["a_launches"]:
+        raise AssertionError("train step: A launched without train_fused_conv")
+
+    # train_fused_conv: A's forward in the four level-0 convs; losses within
+    # 1e-2 and gradient norms within 5e-2 (as the kernels-vs-plain step of
+    # phase 6: one-ulp bf16 flips of the convs' outputs, cuDNN's backward in
+    # no fixed order).
+    fused = runs["train_fused_conv"]
+    loss_rel = abs(float(fused["metrics"]["total"]) / float(plain["metrics"]["total"]) - 1)
+    norm_rel = abs(float(fused["metrics"]["grad_norm"]) / float(plain["metrics"]["grad_norm"]) - 1)
+    if fused["a_launches"] != TRAIN_FUSED_LAUNCHES["unet"] or loss_rel > 1e-2 or norm_rel > 5e-2:
+        raise AssertionError(f"train_fused_conv step: {fused['a_launches']} A launches "
+                             f"(want {TRAIN_FUSED_LAUNCHES['unet']}), loss rel {loss_rel:.3e} "
+                             f"(tol 1e-2), grad_norm rel {norm_rel:.3e} (tol 5e-2)")
+    # remat: the same forward, so the same loss bits and running statistics
+    # updated once (the recompute leaves them alone); gradients within 1e-2
+    # of each tensor's largest (cuDNN's dgrad and wgrad sum in no fixed order).
+    remat = runs["remat"]
+    same_loss = torch.equal(remat["metrics"]["total"], plain["metrics"]["total"])
+    same_stats = all(torch.equal(v, plain["buffers"][k]) for k, v in remat["buffers"].items())
+    tracked = {int(v) for k, v in remat["buffers"].items() if k.endswith("num_batches_tracked")}
+    grad_err = max(float((g - plain["grads"][k]).abs().max())
+                   / max(float(plain["grads"][k].abs().max()), 1e-30)
+                   for k, g in remat["grads"].items())
+    bits = all(torch.equal(g, plain["grads"][k]) for k, g in remat["grads"].items())
+    print(f"remat: loss bits {'equal' if same_loss else 'DIFFER'}, running statistics "
+          f"{'equal' if same_stats else 'DIFFER'}, num_batches_tracked {sorted(tracked)}, "
+          f"gradients {'bit-equal' if bits else 'differ'} (largest difference {grad_err:.3e} "
+          f"of its tensor's largest, tol 1e-2); peak memory {remat['peak_gib']:.3f} GiB "
+          f"against {plain['peak_gib']:.3f}")
+    if not (same_loss and same_stats and tracked == {1} and grad_err <= 1e-2):
+        raise AssertionError("remat step disagrees with the plain step")
+
+    # A's wrapper still refuses an input that needs a gradient outside the
+    # autograd Function.
+    x = torch.randn(1, 8, 8, 16, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(16, 16, 3, 3, device=dev)
+    try:
+        packed_vgg.conv3x3_fused([x], [w])
+    except ValueError:
+        print("conv3x3_fused refuses an input that needs a gradient outside TrainConv3x3: ok")
+    else:
+        raise AssertionError("conv3x3_fused launched on an input that needs a gradient")
+
+    pp = TrainConfig(model_type="unet++", base_filters=32)
+    runs = step_three_ways(pp, {"plain": {}, "train_fused_conv": {"train_fused_conv": True}})
+    fused, plain = runs["train_fused_conv"], runs["plain"]
+    loss_rel = abs(float(fused["metrics"]["total"]) / float(plain["metrics"]["total"]) - 1)
+    print(f"U-Net++ (base 32) train step with train_fused_conv: A launches "
+          f"{fused['a_launches']} (want {TRAIN_FUSED_LAUNCHES['unet++']}), loss "
+          f"{float(fused['metrics']['total']):.6f} (plain {float(plain['metrics']['total']):.6f}, "
+          f"rel {loss_rel:.3e}, tol 1e-2), {fused['ms']:.3f} ms/step against {plain['ms']:.3f}, "
+          f"peak {fused['peak_gib']:.3f} GiB against {plain['peak_gib']:.3f}")
+    if fused["a_launches"] != TRAIN_FUSED_LAUNCHES["unet++"] or loss_rel > 1e-2:
+        raise AssertionError("U-Net++ train_fused_conv step disagrees")
+    print(f"training variants phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def unetpp_train(dev, tmpdir: str, data: str) -> None:
@@ -1645,6 +1876,7 @@ def main() -> int:
         data = make_data(tmpdir)
         launches = {"serving": serving_path(dev, checkpoints["unet"]),
                     "training": train_path(dev, tmpdir, data)}
+        train_variants_path(dev, data)
         unetpp_train(dev, tmpdir, data)
         launches["evaluation"] = eval_path(dev, tmpdir, data, checkpoints)
         launches["pair"] = pair_path(dev, checkpoints)

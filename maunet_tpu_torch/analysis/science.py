@@ -78,8 +78,6 @@ VARIANTS: dict[str, tuple[bool, bool]] = {
 def _science_config(temporal: bool, metadata: bool, hw: int,
                     temporal_len: int, base_filters: int,
                     batch_size: int, epochs: int) -> TrainConfig:
-    # The JAX config also sets logging.frequency_plt = 0: the port has no
-    # prediction plots to turn off.
     return TrainConfig(
         batch_size=batch_size,
         base_filters=base_filters,
@@ -95,6 +93,7 @@ def _science_config(temporal: bool, metadata: bool, hw: int,
         temporal_embeddings=temporal,
         metadata_embeddings=metadata,
         temporal_length=temporal_len,
+        frequency_plt=0,
     )
 
 

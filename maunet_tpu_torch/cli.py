@@ -7,6 +7,8 @@ touches a model takes ``--device`` (``cuda`` unless asked otherwise):
     python -m maunet_tpu_torch.cli evaluate CKPT.pth --data-dir D
     python -m maunet_tpu_torch.cli synth-data OUT_DIR [--hw 64 ...]
     python -m maunet_tpu_torch.cli pack DATA_DIR [--out-dir ...]
+    python -m maunet_tpu_torch.cli process [--data-root data --image-dir D ...]
+    python -m maunet_tpu_torch.cli process-temperature [--raw-dir D --out-dir D]
     python -m maunet_tpu_torch.cli bench [--suite inference ...] [--out rows.json]
     python -m maunet_tpu_torch.cli sensitivity CKPT.pth EVAL_CSV --data-dir D
     python -m maunet_tpu_torch.cli gt-sensitivity --data-dir D
@@ -19,12 +21,13 @@ touches a model takes ``--device`` (``cuda`` unless asked otherwise):
 The configuration is the port's flat ``TrainConfig``.  ``-o section.key=value``
 (the value read by ``ast.literal_eval``, else kept as a string) sets
 ``training.*``, ``dataset.{temporal_length,nb_metadata_features,
-input_channels,target_channels}``, ``logging.frequency_log`` or ``seed``;
-any other key raises.  ``--config PATH`` reads the same keys from the JAX
+input_channels,target_channels}``, ``logging.{frequency_log,frequency_plt}``
+or ``seed``; any other key raises.  ``--config PATH`` reads the same keys from the JAX
 package's YAML layout (PyYAML needed) and, as the JAX loader does, ignores
 the keys it does not know; ``-o`` applies after it.  ``TrainConfig`` holds no
 paths, so ``--data-dir`` is required where the JAX command line falls back
-to ``cfg.paths``.
+to ``cfg.paths``; ``process`` and ``process-temperature`` take ``--data-root``
+(default ``data``) and lay their paths out under it as ``cfg.paths`` does.
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ log = logging.getLogger(__name__)
 
 _DATASET_KEYS = ("temporal_length", "nb_metadata_features", "input_channels",
                  "target_channels")
+_LOGGING_KEYS = ("frequency_log", "frequency_plt")
 _TRAINING_KEYS = tuple(f.name for f in dataclasses.fields(TrainConfig)
-                       if f.name not in _DATASET_KEYS + ("frequency_log", "seed"))
+                       if f.name not in _DATASET_KEYS + _LOGGING_KEYS + ("seed",))
 
 
 def config_field(key: str) -> str | None:
@@ -53,8 +57,8 @@ def config_field(key: str) -> str | None:
     section, _, name = key.partition(".")
     if key == "seed":
         return "seed"
-    if key == "logging.frequency_log":
-        return "frequency_log"
+    if section == "logging" and name in _LOGGING_KEYS:
+        return name
     if section == "dataset" and name in _DATASET_KEYS:
         return name
     if section == "training" and name in _TRAINING_KEYS:
@@ -70,7 +74,8 @@ def with_overrides(cfg: TrainConfig, dotted: dict[str, Any]) -> TrainConfig:
         if name is None:
             raise ValueError(
                 f"unknown config key {key!r}: the port's TrainConfig takes training.*, "
-                f"dataset.{{{','.join(_DATASET_KEYS)}}}, logging.frequency_log and seed")
+                f"dataset.{{{','.join(_DATASET_KEYS)}}}, logging.{{{','.join(_LOGGING_KEYS)}}} "
+                f"and seed")
         fields[name] = tuple(value) if isinstance(value, list) else value
     return dataclasses.replace(cfg, **fields)
 
@@ -202,6 +207,28 @@ def cmd_synth_data(args) -> int:
     root = generate_dataset(args.out_dir, splits, hw=args.hw,
                             temporal_len=args.temporal_len, seed=args.seed)
     log.info(f"Synthetic dataset written to {root}")
+    return 0
+
+
+def cmd_process(args) -> int:
+    from maunet_tpu_torch.data.processing import process_future_data
+
+    cfg = load_cfg(args)
+    process_future_data(args.data_root, image_dir=args.image_dir,
+                        output_dir=args.output_dir, cities_csv=args.cities_csv,
+                        target_shape=(args.tile_size, args.tile_size),
+                        temperature_dir=args.temperature_dir,
+                        holdout_ratio=args.holdout_ratio, seed=cfg.seed)
+    return 0
+
+
+def cmd_process_temperature(args) -> int:
+    from maunet_tpu_torch.data import processing
+    from maunet_tpu_torch.data.temperature import process_temperature
+
+    process_temperature(
+        args.raw_dir or os.path.join(args.data_root, processing.RAW_TEMPERATURE_DIR),
+        args.out_dir or os.path.join(args.data_root, processing.PROCESSED_TEMPERATURE_DIR))
     return 0
 
 
@@ -365,6 +392,26 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--splits", nargs="+", default=["train", "val", "test"])
     sp.add_argument("--shard-size", type=int, default=64)
     sp.set_defaults(fn=cmd_pack)
+
+    from maunet_tpu_torch.data import processing
+
+    sp = sub.add_parser("process", help="raw tiles -> processed .npz dataset")
+    common(sp)
+    sp.add_argument("--data-root", default=processing.DATA_ROOT)
+    sp.add_argument("--image-dir", default=None)
+    sp.add_argument("--output-dir", default=None)
+    sp.add_argument("--cities-csv", default=None)
+    sp.add_argument("--temperature-dir", default=None,
+                    help="the processed CRU cube's directory")
+    sp.add_argument("--tile-size", type=int, default=processing.TILE_EDGE)
+    sp.add_argument("--holdout-ratio", type=float, default=processing.HOLDOUT_CITY_RATIO)
+    sp.set_defaults(fn=cmd_process)
+
+    sp = sub.add_parser("process-temperature", help="CRU z-scoring -> cube")
+    sp.add_argument("--data-root", default=processing.DATA_ROOT)
+    sp.add_argument("--raw-dir", default=None)
+    sp.add_argument("--out-dir", default=None)
+    sp.set_defaults(fn=cmd_process_temperature)
 
     sp = sub.add_parser("sensitivity", help="metadata sensitivity sweep")
     common(sp)

@@ -1,5 +1,5 @@
-"""Raw-tile IO: GeoTIFF filename parsing, location/time grouping, and
-load-and-resize readers.
+"""Raw-tile IO: GeoTIFF filename parsing, location/time grouping,
+load-and-resize readers and the one-hot class encoding.
 
 A copy of ``maunet_tpu/data/tiles.py`` (which imports JAX through its
 package).  Capability parity with reference src/data/processing_10m/utils.py:9-87.
@@ -136,3 +136,9 @@ def load_and_resize_rgb(path: str, target_shape: Tuple[int, int]) -> np.ndarray:
     data = _cv2_resize(data.astype(np.float32), target_shape, False)
     return data.transpose(2, 0, 1)
 
+
+def one_hot_encode(img: np.ndarray, num_classes: int = 9) -> np.ndarray:
+    """(H, W) int class map in [0, num_classes) -> (num_classes, H, W) one-hot
+    (reference src/data/processing_10m/normalization.py:96-100)."""
+    clipped = np.clip(img.astype(int), 0, num_classes - 1)
+    return np.eye(num_classes, dtype=np.float64)[clipped].transpose(2, 0, 1)

@@ -17,24 +17,30 @@ Two structural points carry over from the JAX module:
    is computed in closed form (:func:`const_conv`).
 
 Which convs run the fused kernel is a function of the output width alone
-(:func:`uses_fused_kernel`).  In eval mode with gradients off, a block keeps
-what each conv needs beyond its input (the BatchNorm affine, and the weights
-folded and laid out for the fused kernel or for cuDNN) from one forward to
-the next (``VGGBlock._constants``).  Lane packing (``Packed``, ``BatchNormPacked``,
-``PackedConv1x1``, ``_ConvParams``) is a TPU layout device and is not
-ported; the whole-block pair kernel is, on plain NHWC (``VGGBlock.fuse_pair``).
+(:func:`uses_fused_kernel`); in train mode with ``train_fused``, JAX's
+``train_conv.supported`` rule picks them (``ops/train_conv.py``).  In eval
+mode with gradients off, a block keeps what each conv needs beyond its input
+(the BatchNorm affine, and the weights folded and laid out for the fused
+kernel or for cuDNN) from one forward to the next (``VGGBlock._constants``).
+Lane packing (``Packed``, ``BatchNormPacked``, ``PackedConv1x1``,
+``_ConvParams``) is a TPU layout device and is not ported; the whole-block
+pair kernel is, on plain NHWC (``VGGBlock.fuse_pair``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from maunet_tpu_torch.ops import train_conv
 from maunet_tpu_torch.ops.kernels import packed_vgg as pvgg
 
 # JAX sends exactly the convs of output width 64 (the U-Net's level-0 row) to
@@ -186,44 +192,75 @@ def _source_stamp(t: torch.Tensor | None):
     return t.data_ptr(), t.device, version, content
 
 
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_statistics():
+    """Within it, :func:`batch_norm_train` normalises as always but leaves
+    the running statistics alone.  A checkpointed block's forward runs
+    again in the backward pass; flax discards what that recompute would
+    write (``nn.remat``), and so does this."""
+    before = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = before
+
+
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Train-mode BatchNorm of an NHWC tensor as flax computes it: batch
     mean and the biased variance E[y^2] - E[y]^2 (clamped at 0) in f32, and
     running statistics updated in place with momentum 0.1 from the biased
-    variance (torch's own BatchNorm would use the unbiased one)."""
+    variance (torch's own BatchNorm would use the unbiased one), except
+    under :func:`frozen_batch_statistics`."""
     yf = y.float()
     mean = yf.mean(dim=(0, 1, 2))
     var = ((yf * yf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
-        bn.num_batches_tracked += 1
+    if not getattr(_frozen, "on", False):
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            bn.num_batches_tracked += 1
     return (yf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
-                       bn: nn.BatchNorm2d, compute_dtype: torch.dtype) -> torch.Tensor:
+                       bn: nn.BatchNorm2d, compute_dtype: torch.dtype,
+                       fused: bool = False, grouped: bool = False) -> torch.Tensor:
     """relu(BN(conv3x3(concat(parts)))) in train mode (JAX ``VGGBlock`` with
     ``train=True``, blocks.py:478-522).
 
     The spatial parts go through one ``compute_dtype`` cuDNN conv over their
-    concatenation (JAX runs the train convs on XLA: ``train_fused_conv`` is
-    off by default), the broadcast embeddings through the closed form
-    :func:`const_conv`.  The conv bias is detached, as JAX
-    ``stop_gradient``s it: batch-statistics BN cancels it exactly.  BN in
-    f32, ReLU, then a cast to ``compute_dtype``."""
+    concatenation (JAX runs the train convs on XLA), or, with ``fused`` and
+    where JAX's ``splitconv_train_fused`` would act (``grouped``: JAX's
+    ``group_spatial``), through kernel A's forward with the library's
+    backward (:func:`~maunet_tpu_torch.ops.train_conv.train_conv3x3`).  The
+    broadcast embeddings go through the closed form :func:`const_conv`.  The
+    conv bias is detached, as JAX ``stop_gradient``s it: batch-statistics BN
+    cancels it exactly.  BN in f32, ReLU, then a cast to ``compute_dtype``."""
     hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype,
                                               contiguous=False)
-    x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
-    wt = torch.cat(weights, dim=1) if len(weights) > 1 else weights[0]
-    y = F.conv2d(x.permute(0, 3, 1, 2),
-                 wt.to(compute_dtype).contiguous(memory_format=torch.channels_last),
-                 padding=1).permute(0, 2, 3, 1)
+    if fused and train_conv.takes_kernel(spatial, conv.out_channels, grouped):
+        y = train_conv.train_conv3x3(spatial, weights)
+    else:
+        x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
+        wt = torch.cat(weights, dim=1) if len(weights) > 1 else weights[0]
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     wt.to(compute_dtype).contiguous(memory_format=torch.channels_last),
+                     padding=1).permute(0, 2, 3, 1)
     for e, w_e in bcast:
         y = y + const_conv(e, w_e, *hw).to(compute_dtype)
     y = y + conv.bias.detach().to(compute_dtype)
     return torch.relu(batch_norm_train(y, bn)).to(compute_dtype).contiguous()
+
+
+def _remat_contexts():
+    """A checkpointed block's forward as it is; its recompute under
+    :func:`frozen_batch_statistics`."""
+    return contextlib.nullcontext(), frozen_batch_statistics()
 
 
 class VGGBlock(nn.Module):
@@ -237,7 +274,13 @@ class VGGBlock(nn.Module):
     and runs conv -> ReLU (JAX blocks.py:501-505).  ``fuse_pair``: in eval
     mode a block whose two convs both take the fused kernel runs as one
     launch of the pair kernel instead of two (JAX blocks.py:462-471,554-581;
-    off by default, as there).
+    off by default, as there).  ``train_fused``: in train mode the convs
+    that JAX's ``train_conv.supported`` takes run kernel A's forward
+    (:func:`conv_bn_relu_train`; ``group_spatial`` is JAX's flag of that
+    name, which only enters that rule here).  ``remat``: in train mode the
+    block runs under activation checkpointing (JAX ``nn.remat``), its
+    recompute leaving the running statistics alone.  Both off by default,
+    as in JAX.
 
     In eval mode with gradients off, each conv's constants (the BatchNorm
     affine; the :class:`~maunet_tpu_torch.ops.kernels.packed_vgg.PreparedConv`
@@ -252,10 +295,15 @@ class VGGBlock(nn.Module):
 
     def __init__(self, in_channels: int, middle_channels: int,
                  out_channels: int, compute_dtype: torch.dtype = torch.bfloat16,
-                 bn_fused: bool = False, fuse_pair: bool = False):
+                 bn_fused: bool = False, fuse_pair: bool = False,
+                 train_fused: bool = False, group_spatial: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.fuse_pair = fuse_pair
+        self.train_fused = train_fused
+        self.group_spatial = group_spatial
+        self.remat = remat
         self.conv1 = nn.Conv2d(in_channels, middle_channels, 3, padding=1)
         self.bn1 = None if bn_fused else nn.BatchNorm2d(middle_channels, eps=1e-5)
         self.conv2 = nn.Conv2d(middle_channels, out_channels, 3, padding=1)
@@ -310,13 +358,21 @@ class VGGBlock(nn.Module):
                 and uses_fused_kernel(self.conv1.out_channels)
                 and uses_fused_kernel(self.conv2.out_channels))
 
+    def _train_forward(self, *parts: torch.Tensor) -> torch.Tensor:
+        cd, fused = self.compute_dtype, self.train_fused
+        x = conv_bn_relu_train(list(parts), self.conv1, self.bn1, cd, fused,
+                               self.group_spatial)
+        return conv_bn_relu_train([x], self.conv2, self.bn2, cd, fused)
+
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         cd = self.compute_dtype
         if self.training:
             if self.bn1 is None:
                 raise RuntimeError("bn_fused is an inference-only mode")
-            x = conv_bn_relu_train(list(parts), self.conv1, self.bn1, cd)
-            return conv_bn_relu_train([x], self.conv2, self.bn2, cd)
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(self._train_forward, *parts, use_reentrant=False,
+                                  context_fn=_remat_contexts)
+            return self._train_forward(*parts)
         if self.takes_pair_kernel():
             hw, spatial, weights, bcast = split_parts(list(parts), self.conv1, cd)
             add = embedding_add(bcast, hw)

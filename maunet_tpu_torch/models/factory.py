@@ -7,15 +7,47 @@ state_dict carries the reference's ``model.`` key prefix.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 import torch.nn as nn
 
+from maunet_tpu_torch.models.encoders import LSTMParams
 from maunet_tpu_torch.models.unet import MetaUNet
 from maunet_tpu_torch.models.unetpp import MetaUNetPP
 
 MODEL_TYPES = ("unet", "unet++")
+
+# The std of a unit normal truncated at +-2, which flax's
+# ``variance_scaling(..., "truncated_normal")`` divides out.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def init_like_jax_(model: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Draw ``model``'s weights from the JAX package's initializers, in place.
+
+    Every conv and linear weight from flax's ``lecun_normal`` (a normal of
+    std sqrt(1 / fan_in) / 0.8796, truncated at +-2 of that std; fan_in is
+    9 * in for a 3x3 conv, in for a 1x1 conv or a linear layer), every conv
+    and linear bias zero (``maunet_tpu/models/blocks.py:220-223``,
+    ``encoders.py:86, 104-105``, the heads of ``unet.py:148`` and
+    ``unetpp.py:184``) and the LSTM's uniform in +-1/sqrt(H)
+    (``encoders.py:61-64``); BatchNorm keeps torch's ones and zeros, as
+    flax's.  ``generator`` None draws from torch's global generator, as
+    torch's own initializers do."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNCATED_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, LSTMParams):
+                bound = 1.0 / math.sqrt(m.hidden_size)
+                for p in m.parameters():
+                    nn.init.uniform_(p, -bound, bound, generator=generator)
 
 
 class UrbanPredictor(nn.Module):
@@ -23,7 +55,14 @@ class UrbanPredictor(nn.Module):
 
     Unlike the JAX facade, torch modules are built before they see an input,
     so the spatial channel count (``in_channels``) and the metadata feature
-    count (``meta_features``) are arguments."""
+    count (``meta_features``) are arguments.  A fresh model's weights come
+    from the JAX package's initializers (:func:`init_like_jax_`), drawn from
+    ``generator`` (torch's global generator when None).
+
+    ``train_fused_conv`` and ``remat`` are the JAX flags of the same names,
+    off by default as there: in train mode the narrow convs' forward runs
+    kernel A (``ops/train_conv.py``), and each VGGBlock runs under
+    activation checkpointing."""
 
     def __init__(self, model_type: str = "unet", out_channels: int = 2,
                  temporal_dim: int = 64, meta_dim: int = 64,
@@ -34,7 +73,8 @@ class UrbanPredictor(nn.Module):
                  lstm_mask_mode: str = "per_sample",
                  compute_dtype: torch.dtype = torch.bfloat16,
                  deep_supervision: bool = False, bn_fused: bool = False,
-                 fuse_pair: bool = False):
+                 fuse_pair: bool = False, train_fused_conv: bool = False,
+                 remat: bool = False, generator: torch.Generator | None = None):
         super().__init__()
         if model_type not in MODEL_TYPES:
             raise ValueError(f"Unsupported model_type: {model_type!r} "
@@ -47,11 +87,13 @@ class UrbanPredictor(nn.Module):
             temporal_embeddings=temporal_embeddings,
             metadata_embeddings=metadata_embeddings,
             lstm_mask_mode=lstm_mask_mode, compute_dtype=compute_dtype,
-            bn_fused=bn_fused, fuse_pair=fuse_pair)
+            bn_fused=bn_fused, fuse_pair=fuse_pair,
+            train_fused_conv=train_fused_conv, remat=remat)
         if model_type == "unet":   # deep supervision is a U-Net++ option
             self.model = MetaUNet(**kw)
         else:
             self.model = MetaUNetPP(deep_supervision=deep_supervision, **kw)
+        init_like_jax_(self, generator)
 
     def forward(self, maps: torch.Tensor, temp_series: torch.Tensor,
                 metadata: torch.Tensor,
@@ -64,7 +106,8 @@ class UrbanPredictor(nn.Module):
 def build_model(hyperparams: dict[str, Any], *, out_channels: int = 2,
                 lstm_mask_mode: str = "per_sample",
                 compute_dtype: torch.dtype = torch.bfloat16,
-                bn_fused: bool = False, fuse_pair: bool = False) -> UrbanPredictor:
+                bn_fused: bool = False, fuse_pair: bool = False,
+                train_fused_conv: bool = False) -> UrbanPredictor:
     """Build a model (in eval mode) from a checkpoint hyperparameter dict.
 
     Defaults follow the reference evaluator (temporal_dim=16, meta_dim=8,
@@ -89,5 +132,6 @@ def build_model(hyperparams: dict[str, Any], *, out_channels: int = 2,
         deep_supervision=bool(hyperparams.get("deep_supervision", False)),
         bn_fused=bn_fused,
         fuse_pair=fuse_pair,
+        train_fused_conv=train_fused_conv,
     )
     return model.eval()

@@ -32,7 +32,8 @@ class MetaUNet(nn.Module):
                  metadata_embeddings: bool = True,
                  lstm_mask_mode: str = "per_sample",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 bn_fused: bool = False, fuse_pair: bool = False):
+                 bn_fused: bool = False, fuse_pair: bool = False,
+                 train_fused_conv: bool = False, remat: bool = False):
         super().__init__()
         self.out_channels = out_channels
         self.compute_dtype = compute_dtype
@@ -53,7 +54,8 @@ class MetaUNet(nn.Module):
                                                 compute_dtype=compute_dtype)
             emb += meta_dim
         vgg = lambda cin, cout: VGGBlock(cin, cout, cout, compute_dtype,
-                                         bn_fused=bn_fused, fuse_pair=fuse_pair)
+                                         bn_fused=bn_fused, fuse_pair=fuse_pair,
+                                         train_fused=train_fused_conv, remat=remat)
         self.conv0_0 = vgg(in_channels, nb[0])
         self.conv1_0 = vgg(nb[0], nb[1])
         self.conv2_0 = vgg(nb[1], nb[2])

@@ -41,7 +41,8 @@ class MetaUNetPP(nn.Module):
                  metadata_embeddings: bool = True,
                  lstm_mask_mode: str = "per_sample",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 bn_fused: bool = False, fuse_pair: bool = False):
+                 bn_fused: bool = False, fuse_pair: bool = False,
+                 train_fused_conv: bool = False, remat: bool = False):
         super().__init__()
         self.out_channels = out_channels
         self.deep_supervision = deep_supervision
@@ -49,8 +50,11 @@ class MetaUNetPP(nn.Module):
         nb = [base_filters * 2 ** i for i in range(5)]
         emb = (temporal_dim if temporal_embeddings else 0) \
             + (meta_dim if metadata_embeddings else 0)
+        # group_spatial as JAX sets it for U-Net++ (unetpp.py:95-99).
         vgg = lambda cin, lvl: VGGBlock(cin, nb[lvl], nb[lvl], compute_dtype,
-                                        bn_fused=bn_fused, fuse_pair=fuse_pair)
+                                        bn_fused=bn_fused, fuse_pair=fuse_pair,
+                                        train_fused=train_fused_conv,
+                                        group_spatial=True, remat=remat)
         # Node x_{lvl,j} reads j skips of its own level, the resized node
         # below and the embedding.
         node = lambda lvl, j: vgg(j * nb[lvl] + nb[lvl + 1] + emb, lvl)

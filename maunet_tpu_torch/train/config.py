@@ -2,11 +2,10 @@
 
 The fields of ``maunet_tpu/config/config.py`` that the port's ``Trainer``
 reads, flat, with the same defaults: ``TrainingConfig`` (reference
-conf/config.yaml:40-52), ``LoggingConfig.frequency_log``, ``seed``, and the
-dataset fields the loop needs.  A copy, because ``maunet_tpu.config``
-imports PyYAML.  Left out, with the features they configure (ROADMAP.md):
-``remat``, ``frequency_plt`` (prediction plots), ``keep_last_checkpoints``
-(read by nothing) and the mesh.
+conf/config.yaml:40-52), ``LoggingConfig.frequency_log`` and
+``frequency_plt``, ``seed``, and the dataset fields the loop needs.  A copy,
+because ``maunet_tpu.config`` imports PyYAML.  Left out:
+``keep_last_checkpoints`` (read by nothing) and the mesh (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,8 +34,10 @@ class TrainConfig:
     temporal_embeddings: bool = True
     metadata_embeddings: bool = True
     compute_dtype: str = "bfloat16"    # bfloat16 | float32
+    remat: bool = False                # activation checkpointing per VGGBlock
     # LoggingConfig
     frequency_log: int = 200
+    frequency_plt: int = 1000          # prediction plots every N steps; 0 disables
     # Config
     seed: int = 42
     # DatasetConfig

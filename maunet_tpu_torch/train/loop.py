@@ -6,18 +6,22 @@ batches with ``RandomFlip``, step logging to the same CSV file and columns,
 masked validation in eval mode at each epoch's end, a best and a last
 checkpoint, exact resume from the last one, an ``epoch_callback`` (which
 the CLI's HPO studies use) and trackers (``utils/tracking.py``), which get
-the step and epoch rows the JAX loop gives them.  Left out (ROADMAP.md): the
-device mesh and multi-host input, prediction plots and ``remat``.
+the step and epoch rows the JAX loop gives them, and prediction plots every
+``frequency_plt`` steps (``train/visualize.py``, handed to each tracker's
+``log_image``; where matplotlib is missing, one logged line and training
+goes on).  Left out (ROADMAP.md): the device mesh and multi-host input.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import logging
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 
 from maunet_tpu_torch.data import open_split
@@ -31,7 +35,7 @@ from maunet_tpu_torch.train.config import TrainConfig, hyperparams_from_config
 from maunet_tpu_torch.train.metrics import CSVLogger, RunningLoss
 from maunet_tpu_torch.train.optimizers import make_optimizer
 from maunet_tpu_torch.train.state import TrainState, param_count
-from maunet_tpu_torch.train.steps import eval_step, train_step
+from maunet_tpu_torch.train.steps import eval_step, train_step, train_step_with_outputs
 
 log = logging.getLogger(__name__)
 
@@ -69,6 +73,12 @@ class Trainer:
         self.csv = CSVLogger(os.path.join(
             work_dir, f"{study_name}_trial{trial_id}_train_log.csv"))
         self.state: TrainState | None = None
+        # Plot steps run where JAX's do, whether or not there is anything to
+        # draw with: their metrics lack grad_norm there too.
+        self.render_plots = bool(cfg.frequency_plt) and (
+            importlib.util.find_spec("matplotlib") is not None)
+        if cfg.frequency_plt and not self.render_plots:
+            log.info("matplotlib is not installed: training without prediction plots")
 
     def _checkpoint_path(self, kind: str) -> str:
         return os.path.join(self.work_dir,
@@ -81,10 +91,12 @@ class Trainer:
             self.device)
 
     def init_state(self, in_channels: int) -> TrainState:
-        """A fresh model (initialised from ``cfg.seed``) and optimizer."""
+        """A fresh model (its weights drawn from ``cfg.seed``, as the JAX
+        package initialises them) and optimizer."""
         cfg = self.cfg
+        # torch's own initializers draw from the global generator before the
+        # JAX-like ones replace what they drew: leave its state as it was.
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(cfg.seed)
             model = UrbanPredictor(
                 model_type=cfg.model_type, out_channels=len(cfg.target_channels),
                 temporal_dim=cfg.temporal_dim, meta_dim=cfg.meta_dim,
@@ -93,11 +105,33 @@ class Trainer:
                 temporal_embeddings=cfg.temporal_embeddings,
                 metadata_embeddings=cfg.metadata_embeddings,
                 compute_dtype=_DTYPES[cfg.compute_dtype],
-                deep_supervision=cfg.deep_supervision)
+                deep_supervision=cfg.deep_supervision, remat=cfg.remat,
+                generator=torch.Generator().manual_seed(cfg.seed))
         model = model.to(self.device)
         opt = make_optimizer(model.parameters(), cfg.optimizer, cfg.learning_rate,
                              cfg.weight_decay, cfg.momentum)
         return TrainState(model, opt, 0)
+
+    def _render_plot(self, batch, outputs: torch.Tensor, metrics, step: int) -> None:
+        """Sample 0 of the batch and its prediction to a PNG, handed to the
+        trackers (JAX ``Trainer._render_plot``).  Plotting never stops
+        training: a failure is logged."""
+        try:
+            from maunet_tpu_torch.data.schema import NormalizationStats
+            from maunet_tpu_torch.train.visualize import plot_predictions_vs_targets
+
+            stats_path = os.path.join(self.data_dir, "normalization_metrics.json")
+            stats = (NormalizationStats.from_json(stats_path)
+                     if os.path.exists(stats_path) else None)
+            host = {k: _host(v[:1]) for k, v in batch.items()}
+            png = plot_predictions_vs_targets(
+                host, _host(outputs[:1]), os.path.join(self.work_dir, "visualizations"),
+                self.study_name, self.trial_id, step, float(metrics["total"]), stats,
+                channels=tuple(self.cfg.target_channels))
+            for tracker in self.trackers:
+                tracker.log_image("train/predictions", png, step=step)
+        except Exception as e:
+            log.warning(f"Prediction plot failed at step {step}: {e}")
 
     def validate(self, state: TrainState) -> dict[str, float]:
         """Masked validation over the val split (reference src/train.py:20-60)."""
@@ -158,9 +192,14 @@ class Trainer:
             for batch in self._device_batches(self.train_ds, True, epoch, drop_last=True):
                 bsz = batch["maps"].shape[0]
                 step = state.step
-                metrics = train_step(state, batch, self.loss_fn,
-                                     gradient_clipping=cfg.gradient_clipping,
-                                     metadata_features=cfg.nb_metadata_features)
+                kw = dict(gradient_clipping=cfg.gradient_clipping,
+                          metadata_features=cfg.nb_metadata_features)
+                if cfg.frequency_plt and step % cfg.frequency_plt == 0:
+                    metrics, outputs = train_step_with_outputs(state, batch, self.loss_fn, **kw)
+                    if self.render_plots:
+                        self._render_plot(batch, outputs, metrics, step)
+                else:
+                    metrics = train_step(state, batch, self.loss_fn, **kw)
                 step_losses.append((metrics["total"], bsz))
                 if step % cfg.frequency_log == 0:
                     values = {k: float(v) for k, v in metrics.items()}
@@ -205,3 +244,8 @@ class Trainer:
                 epoch_callback(epoch, val_loss)
 
         return TrainResult(best_val, best_path, epochs_run, history)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy, floating types as f32."""
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()

@@ -69,6 +69,26 @@ def train_step(state: TrainState, batch: Batch, loss_fn: LossFn, *,
                metadata_features: int = 8) -> dict[str, torch.Tensor]:
     """One update of ``state`` in place.  Returns the loss components and
     ``grad_norm`` (the global norm before clipping) as device scalars."""
+    losses, norm, _ = _update(state, batch, loss_fn, gradient_clipping, metadata_features)
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["grad_norm"] = norm.detach()
+    return metrics
+
+
+def train_step_with_outputs(state: TrainState, batch: Batch, loss_fn: LossFn, *,
+                            gradient_clipping: float = 0.0, metadata_features: int = 8
+                            ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """:func:`train_step`'s update, for the steps that plot their predictions
+    (JAX ``make_train_step_with_outputs``, steps.py:87-118): returns the loss
+    components, without ``grad_norm`` as there, and the last head's outputs
+    (B, H, W, C) f32, detached."""
+    losses, _, outputs = _update(state, batch, loss_fn, gradient_clipping, metadata_features)
+    return {k: v.detach() for k, v in losses.items()}, last_head(outputs).detach()
+
+
+def _update(state: TrainState, batch: Batch, loss_fn: LossFn, gradient_clipping: float,
+            metadata_features: int):
+    """The step itself: (loss components, global gradient norm, outputs)."""
     model, opt = state.model, state.optimizer
     model.train()
     outputs = model_outputs(model, batch, metadata_features)
@@ -85,9 +105,7 @@ def train_step(state: TrainState, batch: Batch, loss_fn: LossFn, *,
         clip_by_global_norm_(grads, norm, gradient_clipping)
     opt.step()
     state.step += 1
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["grad_norm"] = norm.detach()
-    return metrics
+    return losses, norm, outputs
 
 
 @torch.no_grad()

@@ -137,7 +137,8 @@ def test_science_config_matches_jax():
             gradient_clipping=t.gradient_clipping, loss=t.loss, epochs=t.epochs,
             temporal_embeddings=t.temporal_embeddings,
             metadata_embeddings=t.metadata_embeddings,
-            temporal_length=want.dataset.temporal_length, seed=want.seed)
+            temporal_length=want.dataset.temporal_length, seed=want.seed,
+            frequency_plt=want.logging.frequency_plt)
     assert science.VARIANTS == jax_science.VARIANTS
 
 

@@ -79,13 +79,20 @@ def test_overrides_map_onto_train_config(parser):
                               compute_dtype="float32")
 
 
-@pytest.mark.parametrize("key", ["parallel.data_parallel", "training.remat",
-                                 "dataset.tile_size", "logging.frequency_plt",
+@pytest.mark.parametrize("key", ["parallel.data_parallel", "training.keep_last_checkpoints",
+                                 "dataset.tile_size", "training.frequency_plt",
                                  "training.seed", "paths.data_root", "batch_size"])
 def test_unknown_override_raises_naming_the_key(parser, key):
     args = parser.parse_args(["pack", "d", "-o", f"{key}=1"])
     with pytest.raises(ValueError, match=f"unknown config key '{key}'"):
         cli.load_cfg(args)
+
+
+def test_remat_and_plot_frequency_overrides(parser):
+    """The JAX keys of the two training features ported since: both map."""
+    args = parser.parse_args(["pack", "d", "-o", "training.remat=True",
+                              "-o", "logging.frequency_plt=5"])
+    assert cli.load_cfg(args) == TrainConfig(remat=True, frequency_plt=5)
 
 
 def test_yaml_config_and_its_absence(parser, tmp_path, monkeypatch):
@@ -96,7 +103,8 @@ def test_yaml_config_and_its_absence(parser, tmp_path, monkeypatch):
                     "dataset:\n  temporal_length: 40\n  tile_size: 128\n"
                     "paths:\n  data_root: x\nparallel:\n  data_parallel: 1\n")
     args = parser.parse_args(["pack", "d", "--config", str(path), "-o", "seed=9"])
-    assert cli.load_cfg(args) == TrainConfig(seed=9, batch_size=2, temporal_length=40)
+    assert cli.load_cfg(args) == TrainConfig(seed=9, batch_size=2, temporal_length=40,
+                                             remat=True)
     monkeypatch.setitem(sys.modules, "yaml", None)
     with pytest.raises(RuntimeError, match="needs PyYAML"):
         cli.load_cfg(args)

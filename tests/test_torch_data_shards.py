@@ -123,7 +123,8 @@ def test_trainer_reads_a_packed_split(splits, tmp_path):
     flat, packed, _ = splits
     cfg = TrainConfig(batch_size=4, base_filters=4, temporal_dim=4, meta_dim=4,
                       lstm_hidden=8, compute_dtype="float32", loss="mse-gradient",
-                      learning_rate=1e-3, temporal_length=T, frequency_log=1)
+                      learning_rate=1e-3, temporal_length=T, frequency_log=1,
+                      frequency_plt=0)
     results = {}
     for name, root in (("flat", flat), ("packed", packed)):
         trainer = Trainer(cfg, root, work_dir=str(tmp_path / name), device="cpu")

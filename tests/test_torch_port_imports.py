@@ -1,6 +1,7 @@
 """The PyTorch port stands on torch and numpy alone (pandas, scipy, PIL,
-cv2 and matplotlib are imported inside the functions that use them), and
-never computes a CUDA call on the CPU."""
+cv2, matplotlib, xarray and cdsapi are imported inside the functions that
+use them, rasterio where it is present), and never computes a CUDA call on
+the CPU."""
 
 import os
 import subprocess
@@ -18,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 for name in ("jax", "flax", "optax", "orbax", "yaml", "pandas", "matplotlib", "scipy",
-             "PIL", "cv2", "streamlit"):
+             "PIL", "cv2", "streamlit", "xarray", "cdsapi", "rasterio"):
     sys.modules[name] = None          # any import of them raises ImportError
 import maunet_tpu_torch
 for mod in pkgutil.walk_packages(maunet_tpu_torch.__path__, "maunet_tpu_torch."):
@@ -69,14 +70,23 @@ APP_MODULES = [
 ]
 
 
+# The training features ported since (train_fused_conv, remat, prediction
+# plots) and the data preparation (process, process-temperature), likewise.
+TRAINING_FEATURE_MODULES = [
+    "maunet_tpu_torch.ops.train_conv", "maunet_tpu_torch.train.visualize",
+    "maunet_tpu_torch.data.split", "maunet_tpu_torch.data.temperature",
+    "maunet_tpu_torch.data.processing",
+]
+
+
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 63
+    assert len(imported) >= 68
     assert not set(TRAINING_MODULES + EVALUATION_MODULES + RESEARCH_MODULES
-                   + APP_MODULES) - imported
+                   + APP_MODULES + TRAINING_FEATURE_MODULES) - imported
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):

@@ -171,7 +171,8 @@ def test_trackers_receive_the_rows_the_jax_loop_logs(data, tmp_path, monkeypatch
     mine = Recorder()
     cfg = TrainConfig(batch_size=4, base_filters=4, temporal_dim=4, meta_dim=4,
                       lstm_hidden=8, compute_dtype="float32", loss="mse-gradient",
-                      gradient_clipping=1.0, temporal_length=T, frequency_log=1)
+                      gradient_clipping=1.0, temporal_length=T, frequency_log=1,
+                      frequency_plt=0)
     Trainer(cfg, data, work_dir=str(tmp_path / "port"), study_name="t", device="cpu",
             trackers=[mine, tracking.NullTracker()]).train(epochs=1)
 

@@ -46,7 +46,7 @@ def _tiny_cfg(**kw):
     return TrainConfig(batch_size=4, base_filters=4, temporal_dim=4, meta_dim=4,
                        lstm_hidden=8, compute_dtype="float32", loss="mse-gradient",
                        learning_rate=1e-3, gradient_clipping=1.0, temporal_length=T,
-                       frequency_log=1, **kw)
+                       frequency_log=1, frequency_plt=0, **kw)
 
 
 def test_generate_dataset_writes_jax_arrays(roots):
@@ -125,7 +125,7 @@ def test_train_config_defaults_equal_jax():
     left out are the features not ported."""
     cfg, ref = TrainConfig(), Config()
     sections = [ref.training, ref.logging, ref.dataset, ref]
-    left_out = {"remat", "deep_supervision", "keep_last_checkpoints", "frequency_plt"}
+    left_out = {"deep_supervision", "keep_last_checkpoints"}
     for f in dataclasses.fields(cfg):
         owner = next(s for s in sections if f.name in {g.name for g in dataclasses.fields(s)})
         assert getattr(cfg, f.name) == getattr(owner, f.name), f.name

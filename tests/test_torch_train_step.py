@@ -12,6 +12,7 @@ factor n / (n - 1) would be 1.09, so the running variance shows that the
 port updates it with the biased batch variance, as flax does.
 """
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +28,7 @@ from maunet_tpu.train.state import TrainState
 
 from maunet_tpu_torch.interop.from_jax import state_dict_from_jax
 from maunet_tpu_torch.losses import get_loss_fn
-from maunet_tpu_torch.models import UrbanPredictor
+from maunet_tpu_torch.models import UrbanPredictor, blocks
 from maunet_tpu_torch.train.checkpoint import restore_checkpoint
 from maunet_tpu_torch.train.optimizers import make_optimizer
 from maunet_tpu_torch.train.state import TrainState as PortState
@@ -172,9 +173,18 @@ def test_train_step_matches_jax(jax_setup, name):
         # and where g cancels wd p to 1e-8 rounding picks its sign.
         gk = p.grad + (wd * p0 if opt_name == "adam" else 0.0)
         want = -lr * gk / (gk.abs() + 1e-8) - (lr * wd * p0 if opt_name == "adamw" else 0.0)
-        # atol: two roundings of the parameter (AdamW decays, then steps).
+        # atol: two roundings of the parameter (AdamW decays, then steps),
+        # plus the rounding of g' in f32, ulp(|g|) + ulp(|wd p|), carried
+        # through the formula's slope lr eps / (|g'| + eps)^2: where g and
+        # wd p cancel to |g'| ~ 1e-9, that rounding moves the update by 1e-4
+        # of itself (in f64 the port's update meets the formula there).
         ulp2 = 2 * float(np.spacing(np.float32(p0.abs().max())))
-        np.testing.assert_allclose(delta, want.numpy(), rtol=1e-4, atol=ulp2, err_msg=k)
+        wd_p = ((wd if opt_name == "adam" else 0.0) * p0).numpy()
+        g_err = np.spacing(np.abs(p.grad.numpy())) + np.spacing(np.abs(wd_p))
+        slope = lr * 1e-8 / (np.abs(gk.numpy().astype(np.float64)) + 1e-8) ** 2
+        bound = ulp2 + g_err * slope + 1e-4 * np.abs(want.numpy())
+        assert (np.abs(delta - want.numpy()) <= bound).all(), (
+            k, float(np.abs(delta - want.numpy())[np.abs(delta - want.numpy()) > bound].max()))
         g_jax = g + (wd * p0.numpy() if opt_name == "adam" else 0.0)
         unstable[k] = np.abs(g_jax) <= 1e-5
         assert np.abs(delta - deltas[k]).max() <= 2 * lr * (1 + wd), k
@@ -214,10 +224,73 @@ def test_metadata_full_concatenates_dates():
     assert metadata_full(b, 4) is b["metadata"]
 
 
+# A BatchNorm output that the two packages round to opposite sides of the
+# ReLU's kink: its |value| lies within f32 rounding of 0 in both.
+RELU_EDGE = 1e-5
+
+
+def _jax_relu_inputs(model, state, batch):
+    """Every BatchNorm output (the ReLU's input) of ``model``'s train-mode
+    forward, by the port's module name (``model.conv0_1.bn1``)."""
+    meta = jnp.concatenate([batch["metadata"], batch["t1_dates"], batch["t2_dates"]], 1)
+
+    def run(params, stats):
+        _, upd = model.apply({"params": params, "batch_stats": stats}, batch["maps"],
+                             batch["temp_series"], meta, batch["temp_lengths"], train=True,
+                             mutable=["batch_stats", "intermediates"],
+                             capture_intermediates=lambda m, _: isinstance(m, flax.linen.BatchNorm))
+        return upd["intermediates"]
+
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if k == "__call__":
+                out["model." + ".".join(path)] = np.array(v[0])
+            else:
+                walk(v, path + [k])
+
+    walk(jax.jit(run)(state.params, state.batch_stats), [])
+    return out
+
+
+def _take_jax_relu_edges(monkeypatch, port_model, jax_inputs):
+    """Make the port's train-mode forward take JAX's side of the ReLU at the
+    elements where the two packages' BatchNorm outputs straddle 0, each
+    within RELU_EDGE of it; any other disagreement of signs fails.  At such
+    an element the gradient is cut in one package and not in the other,
+    and that one element's difference reaches every parameter upstream.
+    Returns the number of elements taken over."""
+    names = {id(m): n for n, m in port_model.named_modules()}
+    taken = [0]
+    bn_train = blocks.batch_norm_train
+
+    def batch_norm_train(y, bn):
+        out = bn_train(y, bn)
+        want = torch.from_numpy(jax_inputs[names[id(bn)]])
+        flip = (out > 0) != (want > 0)
+        if flip.any():
+            assert out.detach()[flip].abs().max() <= RELU_EDGE, names[id(bn)]
+            assert want[flip].abs().max() <= RELU_EDGE, names[id(bn)]
+            taken[0] += int(flip.sum())
+            out = torch.where(flip, out + (want - out).detach(), out)
+        return out
+
+    monkeypatch.setattr(blocks, "batch_norm_train", batch_norm_train)
+    return taken
+
+
 @pytest.mark.parametrize("name", ["adamw", "sgd"])
-def test_resume_from_jax_exported_optimizer_state(jax_setup, name, tmp_path):
+def test_resume_from_jax_exported_optimizer_state(jax_setup, name, tmp_path, monkeypatch):
     """JAX takes two steps and exports params, BN statistics and optimizer
-    state to a reference ``.pth``; the port loads it and both take step 3."""
+    state to a reference ``.pth``; the port loads it and both take step 3.
+
+    At step 3 under SGD one ReLU input of ``conv0_1.bn1`` is +2.2e-6 in f64
+    (both packages agree there to 1e-14 on every gradient) and JAX's f32,
+    -1.5e-6 in the port's f32: the port's gradient loses that element, and
+    every parameter upstream moves by up to lr * 1.6e-3.  So the port takes
+    JAX's side of the ReLU at such knife edges (``_take_jax_relu_edges``,
+    none under AdamW) and the comparison keeps its tolerance."""
     model, get = jax_setup
     state, step = get(name)
     for seed in (0, 1):
@@ -233,5 +306,7 @@ def test_resume_from_jax_exported_optimizer_state(jax_setup, name, tmp_path):
     assert pstate.step == 2
     batch = _batch(2)
     state3, _ = step(state, batch)
+    taken = _take_jax_relu_edges(monkeypatch, pstate.model, _jax_relu_inputs(model, state, batch))
     train_step(pstate, _torch_batch(batch), get_loss_fn(LOSS), gradient_clipping=clip)
+    assert taken[0] <= 4     # knife edges are rare: one here under SGD, none under AdamW
     _check_params(pstate.model, state3.variables, name)
