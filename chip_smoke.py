@@ -132,7 +132,24 @@ Phases, one output line each (or a few for the kernel table):
    nonparametric tests, ``summary.json`` (with the keys of the committed
    ``reports/science/summary.json``) and ``REPORT.md`` must be written, every
    slope finite, E, F's two launches and dW launched in training and D in
-   evaluation; ``cli stats`` over the four CSVs must exit 0.
+   evaluation; ``cli stats`` over the four CSVs must exit 0;
+12. research app: ``apps/research.py`` runs headless
+   (``apps/headless.run_research_page``) with ``--device cuda``.  Its model
+   browser loads phase 5's U-Net and phase 7's U-Net++ checkpoints and
+   predicts the first test sample of phase 6's split (B = 1, 256², T =
+   828): A, B and C must launch exactly one forward's worth a family
+   (``BROWSER_LAUNCHES``: 4, 1, 4 and 18, 1, 10), the maps must be finite
+   and agree with the same page run with the plain versions patched in,
+   within 5% of the output's largest magnitude, as in phase 5; the
+   ``Parameters`` metric must be the model's parameter count, the
+   interactive diagram rendered once, and each of the three figures drawn
+   or, without matplotlib, one info line; one ``predict_batch`` is timed on
+   the host clock.  The other five pages render over phase 7's two
+   evaluation CSVs and the split (the t-test frame not empty); ``cli eda
+   extract`` over the test split (one row a sample) and ``analyze-csv``
+   must exit 0; the native ``.npz`` decoder must give every test sample
+   bit-equal to numpy's, and the loader suite prints its numpy, native and
+   shards rows (16 samples).
 
 The line before the last is the kernel summary JSON: per kernel the launch
 count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
@@ -1825,6 +1842,157 @@ def science_path(dev, tmpdir: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Launches of A, B and C in one forward at B = 1: the U-Net's as a sweep
+# chunk's; U-Net++'s (base 32) as one evaluation batch's in phase 7: A for
+# the 18 convs of width <= 64 (conv0_0-conv0_4, conv1_0-conv1_3), C for the
+# 10 upsamples (one a node X(i, j), j >= 1).
+BROWSER_LAUNCHES = {"unet": SWEEP_LAUNCHES,
+                    "unet++": {"conv3x3_fused": 18, "lstm_last_hidden": 1, "resize_pack": 10}}
+# The figures the model browser draws: the static architecture figure and the
+# zoomed NDVI and LST quadrants.
+BROWSER_FIGURES = 3
+# Samples of phase 12's loader suite (256², T = 828; the suite's default is
+# 64, cut to keep the phase's time).
+LOADER_SAMPLES = 16
+
+
+def research_app_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str],
+                      card: str) -> None:
+    """Phase 12: the research app headless on the card (the model browser
+    for both families, then the other five pages), ``cli eda`` over the test
+    split, and the native decoder against numpy with the loader suite."""
+    from maunet_tpu_torch import benchmarks, cli
+    from maunet_tpu_torch.analysis import plots, stats
+    from maunet_tpu_torch.apps import headless
+    from maunet_tpu_torch.data import native
+    from maunet_tpu_torch.data.dataset import NpzDataset
+    from maunet_tpu_torch.evaluate import evaluator
+    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+
+    t_phase = time.perf_counter()
+    drawn = plots.available()
+    argv = ["--data-dir", data, "--device", str(dev)]
+    for model_type, path in checkpoints.items():
+        seen = {}
+        real_predict = evaluator.predict_batch
+
+        def predict_batch(loaded, batch):
+            out = real_predict(loaded, batch)
+            seen.setdefault("out", []).append(out)
+            seen["loaded"], seen["batch"] = loaded, batch
+            return out
+
+        answers = {"Checkpoint path (.pth or orbax dir)": path,
+                   "Predict a test sample (zoomed quadrants)": True}
+        with mock.patch.object(evaluator, "predict_batch", predict_batch):
+            fns = reset_launches()
+            st = headless.run_research_page("Model browser", argv, answers)
+            launches = {name: fn.launches for name, fn in fns.items() if fn.launches}
+            with mock.patch.object(packed_vgg, "conv3x3_fused", packed_vgg.conv3x3_fused_plain), \
+                    mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
+                    mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain):
+                headless.run_research_page("Model browser", argv, answers)
+        got, want = seen["out"]
+        hw = got.shape[1]
+        check_outputs(f"model browser {model_type}", got[0, ..., 0], got[0, ..., 1], hw)
+        diff, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        n = sum(p.numel() for p in seen["loaded"].model.parameters())
+        metric = st.rendered("metric")
+        figures = st.rendered("pyplot") if drawn else st.rendered("info")
+        print(f"model browser {model_type} ({got.shape[0]} x {hw}², bf16, T = {T_SERIES}): "
+              f"launches={launches}, Parameters {metric[0][1] if metric else None}, "
+              f"{len(st.rendered('components_html'))} interactive diagram, "
+              f"{len(figures)} figures {'drawn' if drawn else 'left out, one info line each'}; "
+              f"vs plain versions max_abs_diff={diff:.4e} (output max |x| {scale:.4f}, "
+              f"tol {0.05 * max(scale, 1.0):.4f})")
+        if launches != BROWSER_LAUNCHES[model_type]:
+            raise AssertionError(f"model browser {model_type}: launches {launches}, "
+                                 f"want {BROWSER_LAUNCHES[model_type]}")
+        if diff > 0.05 * max(scale, 1.0):
+            raise AssertionError(f"model browser {model_type} disagrees with its plain versions")
+        if metric != [("Parameters", f"{n:,}", None)] or len(st.rendered("components_html")) != 1:
+            raise AssertionError(f"model browser {model_type}: metric {metric}, "
+                                 f"{len(st.rendered('components_html'))} diagrams")
+        if len(figures) != BROWSER_FIGURES or (not drawn and st.rendered("pyplot")):
+            raise AssertionError(f"model browser {model_type}: figures {figures}")
+        host_ms = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_predict(seen["loaded"], seen["batch"])
+            if i >= 1:
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"model browser {model_type} predict_batch (1 x {hw}², bf16): "
+              f"{statistics.median(host_ms):.3f} ms (host clock, median of {len(host_ms)}, the "
+              f"batch copied in and the maps out) on {card}")
+
+    # The other five pages over phase 7's two evaluation CSVs and the split.
+    reports = os.path.join(tmpdir, "reports")
+    runs = ["smoke_unet_emb_0_job1", "smoke_unet++_emb_0_job1"]
+    frames = {}
+    real_ttests = stats.comparative_analysis
+
+    def ttests(*a, **k):
+        frames["ttests"] = real_ttests(*a, **k)
+        return frames["ttests"]
+
+    argv = ["--reports-dir", reports, "--data-dir", data, "--device", str(dev)]
+    answers = {"Evaluation runs": runs, "Runs to compare": runs, "Run": runs[0]}
+    rendered = {}
+    with mock.patch.object(stats, "comparative_analysis", ttests):
+        for page in ("Model comparison", "Evaluation analysis", "Statistical comparison",
+                     "Dataset map", "Metric interpretation"):
+            st = headless.run_research_page(page, argv, answers)
+            rendered[page] = {m: len(st.rendered(m)) for m in
+                              ("dataframe", "metric", "pyplot", "info", "map")}
+            if page == "Model comparison" and set(st.rendered("dataframe")[0].index) != set(runs):
+                raise AssertionError(f"comparison page: {st.rendered('dataframe')[0].index}")
+            if page == "Dataset map" and int(st.rendered("dataframe")[0].sum()) != sum(
+                    SAMPLES.values()):
+                raise AssertionError("dataset page: the sample counts differ from the split's")
+    significant = int((frames["ttests"]["winner"] != "insignificant").sum())
+    print(f"research pages over {runs}: {rendered}; t-tests {len(frames['ttests'])} rows, "
+          f"{significant} significant")
+    if frames["ttests"].empty:
+        raise AssertionError("statistics page: the t-test frame is empty")
+
+    # EDA over the test split (a directory holding only it).
+    eda_root = os.path.join(tmpdir, "eda")
+    os.makedirs(eda_root)
+    os.symlink(os.path.join(data, "test"), os.path.join(eda_root, "test"))
+    out_csv = os.path.join(tmpdir, "eda_metrics.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_extract = cli.main(["eda", "extract", eda_root, out_csv])
+        rc_analyze = cli.main(["eda", "analyze-csv", out_csv])
+    with open(out_csv, newline="") as f:
+        n_rows = len(list(csv.DictReader(f)))
+    print(f"cli eda extract over the test split: exit {rc_extract}, {n_rows} rows; "
+          f"analyze-csv: exit {rc_analyze}")
+    if rc_extract or rc_analyze or n_rows != SAMPLES["test"]:
+        raise AssertionError("cli eda failed")
+
+    # The native decoder against numpy, sample by sample, then the loader suite.
+    test_split = os.path.join(data, "test")
+    t0 = time.perf_counter()
+    by_native = NpzDataset(test_split, T_SERIES, backend="native")
+    by_numpy = NpzDataset(test_split, T_SERIES, backend="numpy")
+    for i in range(len(by_numpy)):
+        a, b = by_native[i], by_numpy[i]
+        if list(a) != list(b) or not all(
+                np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+                and np.array_equal(a[k], b[k]) for k in b):
+            raise AssertionError(f"native decoder: sample {i} differs from numpy's")
+    print(f"native decoder ({native.library_path().name}): {len(by_numpy)} test samples "
+          f"bit-equal to numpy's in {time.perf_counter() - t0:.1f} s")
+    record = benchmarks.Recorder(dev)
+    with tempfile.TemporaryDirectory(dir=tmpdir) as bench_dir:
+        benchmarks.bench_loader(record, dev, bench_dir, n=LOADER_SAMPLES)
+    if [r["metric"] for r in record.rows] != [
+            "loader_numpy_256px", "loader_native_256px", "loader_shards_256px"]:
+        raise AssertionError(f"loader suite: rows {record.rows}")
+    print(f"research app phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -1883,6 +2051,7 @@ def main() -> int:
         research_path(dev, tmpdir, data, checkpoints["unet"])
         planner_path(dev, tmpdir, checkpoints["unet"])
         science_path(dev, tmpdir)
+        research_app_path(dev, tmpdir, data, checkpoints, smi[0])
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[path][name], **table.summary(name)}

@@ -1,1 +1,2 @@
-"""Research analyses on the port: sensitivity sweeps, their figures and comparisons."""
+"""Research analyses on the port: sensitivity sweeps, statistics, the
+science loop, EDA and the research app's figures."""

@@ -1,19 +1,27 @@
-"""Headless Streamlit harness: run the planner app without streamlit.
+"""Headless Streamlit harness: run the planner and research apps without
+streamlit.
 
-A copy of ``maunet_tpu/apps/headless.py`` for the port's planner.  Where
+A copy of ``maunet_tpu/apps/headless.py`` for the port's two apps.  Where
 streamlit is not installed (the CPU test hosts, the GPU host),
-``apps/planner.py`` would otherwise be wiring whose API typos only surface
-where streamlit is.
+``apps/planner.py`` and ``apps/research.py`` would otherwise be wiring whose
+API typos only surface where streamlit is.
 
-``FakeStreamlit`` implements exactly the ``st.*`` surface the planner uses —
+``FakeStreamlit`` implements exactly the ``st.*`` surface the two apps use —
 no catch-all ``__getattr__`` — so a misspelled or stale API call raises
 ``AttributeError``.  Widget values are scripted by label; every render call
-is recorded for assertions.  ``run_planner`` injects the fake (and a fake
-drawable canvas) into ``sys.modules`` and drives the real ``main()``.
+is recorded for assertions (``st.components.v1.html`` as
+``components_html``).  ``run_planner`` injects the fake (and a fake
+drawable canvas) into ``sys.modules`` and drives the real ``main()``;
+``run_research_page`` drives one research page, or the page router.
 
 Also a smoke command, on the card unless asked otherwise:
 
     python -m maunet_tpu_torch.apps.headless planner --models-dir models [--device cpu]
+    python -m maunet_tpu_torch.apps.headless research --reports-dir R --data-dir D
+        [--checkpoint CKPT.pth] [--device cpu]
+
+``research`` renders every page; with ``--checkpoint`` the model browser
+loads it and predicts the first test sample of ``--data-dir``.
 """
 
 from __future__ import annotations
@@ -107,11 +115,19 @@ class _Container:
 
     title = _display("title")
     header = _display("header")
+    subheader = _display("subheader")
     markdown = _display("markdown")
+    text = _display("text")
+    json = _display("json")
     info = _display("info")
     warning = _display("warning")
     error = _display("error")
     image = _display("image")
+    pyplot = _display("pyplot")
+    dataframe = _display("dataframe")
+    bar_chart = _display("bar_chart")
+    line_chart = _display("line_chart")
+    map = _display("map")
     del _display
 
     def metric(self, label, value, delta=None):
@@ -137,6 +153,10 @@ class _Container:
         default = options[index] if options else None
         return self._w.get(label, default)
 
+    def multiselect(self, label, options, default=None, **kw):
+        self._rec("multiselect", label)
+        return list(self._w.get(label, default if default is not None else []))
+
     def radio(self, label, options, index=0, horizontal=False,
               format_func=None, **kw):
         self._rec("radio", label)
@@ -160,6 +180,10 @@ class FakeStreamlit(_Container):
         super().__init__(_Widgets(dict(answers or {})), calls=[], name="main")
         self.session_state = _SessionState()
         self.sidebar = _Container(self._w, self.calls, "sidebar")
+        # st.components.v1.html: the research app's interactive diagram
+        self.components = types.SimpleNamespace(v1=types.SimpleNamespace(
+            html=lambda body, height=None, **kw:
+                self._rec("components_html", body, height=height)))
 
     def set_page_config(self, **kw):
         self._rec("set_page_config", kw.get("page_title"))
@@ -230,9 +254,56 @@ def run_planner(argv: list[str], answers: dict[str, Any] | None = None,
     return st
 
 
+def run_research_page(page: str, argv: list[str],
+                      answers: dict[str, Any] | None = None) -> FakeStreamlit:
+    """Execute one apps/research.py page headlessly; ``page`` is a key of
+    ``research.PAGES``, or "main" to drive the page router.  ``argv`` is the
+    app's CLI tail (e.g. ["--data-dir", d, "--device", "cpu"])."""
+    from maunet_tpu_torch.apps import research
+
+    st = FakeStreamlit(answers)
+    old_argv = sys.argv
+    sys.argv = ["research.py"] + list(argv)
+    try:
+        with _patched_modules(st):
+            try:
+                if page == "main":
+                    research.main()
+                else:
+                    research.PAGES[page](st, research._args())
+            except StopRendering:
+                pass
+    finally:
+        sys.argv = old_argv
+    return st
+
+
+def main(argv: list[str]) -> int:
+    app, tail = (argv[0], argv[1:]) if argv else ("planner", [])
+    if app == "planner":
+        fake = run_planner(tail, answers={"Run Prediction": True})
+        print(f"{app}: {len(fake.calls)} render calls, no AttributeErrors")
+        return 0
+    if app != "research":
+        print(f"headless: no app {app!r} (planner or research)", file=sys.stderr)
+        return 2
+    import argparse
+
+    from maunet_tpu_torch.apps import research
+
+    p = argparse.ArgumentParser(prog="headless research")
+    p.add_argument("--checkpoint", default=None,
+                   help="a .pth for the model browser, which then predicts a test sample")
+    known, tail = p.parse_known_args(tail)
+    answers = {}
+    if known.checkpoint:
+        answers = {"Checkpoint path (.pth or orbax dir)": known.checkpoint,
+                   "Predict a test sample (zoomed quadrants)": True}
+    for name in research.PAGES:
+        fake = run_research_page(name, tail, answers)
+        print(f"-- page {name}: {len(fake.calls)} render calls, no AttributeErrors")
+    return 0
+
+
 if __name__ == "__main__":
-    app = sys.argv[1] if len(sys.argv) > 1 else "planner"
-    if app != "planner":
-        sys.exit(f"headless: only the planner is ported, not {app!r}")
-    fake = run_planner(sys.argv[2:], answers={"Run Prediction": True})
-    print(f"{app}: {len(fake.calls)} render calls, no AttributeErrors")
+    sys.exit(main(sys.argv[1:]))

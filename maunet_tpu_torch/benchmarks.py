@@ -13,7 +13,8 @@ Suites, with the JAX package's metric names:
   version (``plain``), at B = 8 and 1;
 - eval: the evaluation metrics of a batch, with kernel D and with its plain
   version;
-- loader: host ``.npz`` decode, per-sample files and packed shards;
+- loader: host ``.npz`` decode, per-sample files (numpy, and the native
+  decoder where it builds) and packed shards;
 - eval_pipeline: ``evaluate_checkpoint`` end to end from packed shards.
 
 Timing keeps the JAX semantics (``_time_device``): a host clock around
@@ -24,8 +25,7 @@ batches, iterations) are keyword arguments of each suite whose defaults are
 the JAX values, and the metric names follow them.  Every row carries the
 card's name and power limit from ``nvidia-smi`` (``device``,
 ``power_limit_w``); a run on the CPU, which only the tests make, says
-``cpu`` and ``None``.  The native loader row is left out: the port has no
-binding to ``native/`` yet.
+``cpu`` and ``None``.
 """
 
 from __future__ import annotations
@@ -204,6 +204,7 @@ def bench_eval_metrics(record: Recorder, device: torch.device, hw: int = 256, b:
 
 def bench_loader(record: Recorder, device: torch.device, tmp_dir: str, n: int = 64,
                  hw: int = 256, t: int = 828) -> None:
+    from maunet_tpu_torch.data import native
     from maunet_tpu_torch.data.dataset import NpzDataset
     from maunet_tpu_torch.data.shards import ShardedNpzDataset, pack_dataset
     from maunet_tpu_torch.data.synthetic import generate_dataset
@@ -221,8 +222,12 @@ def bench_loader(record: Recorder, device: torch.device, tmp_dir: str, n: int = 
             ds[i]
         return len(ds) / (time.perf_counter() - t0)
 
-    record(f"loader_numpy_{hw}px", run(NpzDataset(f"{root}/train", temporal_length=t)),
-           "samples/sec")
+    record(f"loader_numpy_{hw}px",
+           run(NpzDataset(f"{root}/train", temporal_length=t, backend="numpy")), "samples/sec")
+    if native.available():
+        record(f"loader_native_{hw}px",
+               run(NpzDataset(f"{root}/train", temporal_length=t, backend="native")),
+               "samples/sec")
     record(f"loader_shards_{hw}px", run(ShardedNpzDataset(packed, temporal_length=t)),
            "samples/sec")
 

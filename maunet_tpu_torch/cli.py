@@ -17,6 +17,10 @@ touches a model takes ``--device`` (``cuda`` unless asked otherwise):
     python -m maunet_tpu_torch.cli science-loop [--work-dir D --hw 64 --epochs 6]
     python -m maunet_tpu_torch.cli export-optuna STUDY.json DB
     python -m maunet_tpu_torch.cli import-optuna DB STUDY.json
+    python -m maunet_tpu_torch.cli eda extract DATA_DIR OUT.csv
+    python -m maunet_tpu_torch.cli eda analyze-csv METRICS.csv
+    python -m maunet_tpu_torch.cli eda visualize SAMPLE.npz [--out PNG]
+    python -m maunet_tpu_torch.cli eda visualize-tiles IMAGE_DIR [--out PNG]
 
 The configuration is the port's flat ``TrainConfig``.  ``-o section.key=value``
 (the value read by ``ast.literal_eval``, else kept as a string) sets
@@ -316,6 +320,26 @@ def cmd_import_optuna(args) -> int:
     return 0
 
 
+def cmd_eda(args) -> int:
+    from maunet_tpu_torch.analysis import eda, plots
+
+    if args.eda_command in ("visualize", "visualize-tiles") and not plots.available():
+        print(f"eda {args.eda_command} only draws a figure, and matplotlib is not installed",
+              file=sys.stderr)
+        return 1
+    if args.eda_command == "extract":
+        eda.extract_metrics_csv(args.data_dir, args.out_csv)
+    elif args.eda_command == "visualize":
+        eda.visualize_sample(args.npz_path, out_path=args.out)
+    elif args.eda_command == "analyze-csv":
+        eda.analyze_csv(args.csv_path)
+    elif args.eda_command == "visualize-tiles":
+        from maunet_tpu_torch.analysis.tile_viz import visualize_raw_tiles
+
+        visualize_raw_tiles(args.image_dir, out_path=args.out)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from maunet_tpu_torch import benchmarks
 
@@ -462,6 +486,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("json_path")
     sp.add_argument("--study-name", default=None)
     sp.set_defaults(fn=cmd_import_optuna)
+
+    sp = sub.add_parser("eda", help="dataset EDA tools")
+    esub = sp.add_subparsers(dest="eda_command", required=True)
+    e = esub.add_parser("extract", help="per-sample metrics of every split -> CSV")
+    e.add_argument("data_dir")
+    e.add_argument("out_csv")
+    e = esub.add_parser("visualize", help="one sample's channels -> PNG (matplotlib)")
+    e.add_argument("npz_path")
+    e.add_argument("--out", default=None)
+    e = esub.add_parser("analyze-csv", help="land-cover change vs the target deltas")
+    e.add_argument("csv_path")
+    e = esub.add_parser("visualize-tiles", help="raw tiles of one location -> PNG (matplotlib)")
+    e.add_argument("image_dir")
+    e.add_argument("--out", default=None)
+    sp.set_defaults(fn=cmd_eda)
 
     return p
 

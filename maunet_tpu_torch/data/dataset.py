@@ -5,8 +5,9 @@ src/dataset.py:18-131), carried so that the port imports nothing of
 ``maunet_tpu``: ``maunet_tpu/data/__init__.py`` imports its JAX input
 pipeline.  The series is padded to the configured length with an explicit
 length vector, batches are dicts of NHWC numpy arrays, and the last partial
-batch is padded with a ``valid`` mask.  Left out: the native C++ npz decoder
-(numpy reads every file), the multi-host ``sample_slice`` and ``pad_final``,
+batch is padded with a ``valid`` mask.  Files are decoded by the native C++
+decoder (``data/native.py``) where it builds, else by numpy; both give the
+same bits.  Left out: the multi-host ``sample_slice`` and ``pad_final``,
 which no caller turns off.
 """
 
@@ -18,7 +19,18 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from maunet_tpu_torch.data import native
 from maunet_tpu_torch.data.schema import parse_sample_filename
+
+_ENTRIES = ("input", "target", "metadata", "temperature_serie")
+
+
+def _decode(data) -> tuple[np.ndarray, ...]:
+    """A sample's entries as f32: maps and target HWC, metadata, series."""
+    maps = np.ascontiguousarray(data["input"].astype(np.float32).transpose(1, 2, 0))
+    target = np.ascontiguousarray(data["target"].astype(np.float32).transpose(1, 2, 0))
+    return (maps, target, data["metadata"].astype(np.float32),
+            data["temperature_serie"].astype(np.float32))
 
 
 @dataclass
@@ -44,7 +56,12 @@ class NpzDataset:
     (reference src/dataset.py:18-82)."""
 
     def __init__(self, data_dir: str, temporal_length: int = 828,
-                 transform: Callable | None = None):
+                 transform: Callable | None = None, backend: str = "auto"):
+        """backend: 'auto' uses the native C++ npz decoder when it builds
+        (``data/native.py``), else numpy; 'numpy' and 'native' force one
+        ('native' raises where the decoder is unavailable)."""
+        if backend not in ("auto", "numpy", "native"):
+            raise ValueError(f"backend must be auto, numpy or native, not {backend!r}")
         if not os.path.isdir(data_dir):
             raise FileNotFoundError(f"Split directory not found: {data_dir}")
         self.data_dir = data_dir
@@ -52,6 +69,11 @@ class NpzDataset:
         self.transform = transform
         self.files = sorted(os.path.join(data_dir, f) for f in os.listdir(data_dir)
                             if f.endswith(".npz"))
+        self._native = False
+        if backend != "numpy":
+            self._native = native.available()
+            if backend == "native" and not self._native:
+                raise RuntimeError("native npz backend requested but unavailable")
 
     def __len__(self) -> int:
         return len(self.files)
@@ -63,13 +85,11 @@ class NpzDataset:
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
         path = self.files[idx]
         info = parse_sample_filename(path)
-        with np.load(path) as data:
-            maps = np.ascontiguousarray(
-                data["input"].astype(np.float32).transpose(1, 2, 0))   # HWC
-            target = np.ascontiguousarray(
-                data["target"].astype(np.float32).transpose(1, 2, 0))
-            metadata = data["metadata"].astype(np.float32)
-            series = data["temperature_serie"].astype(np.float32)
+        if self._native:
+            maps, target, metadata, series = _decode(native.load_npz(path, list(_ENTRIES)))
+        else:
+            with np.load(path) as data:
+                maps, target, metadata, series = _decode(data)
         if self.transform is not None:
             maps, target = self.transform(maps, target)
         t = self.temporal_length

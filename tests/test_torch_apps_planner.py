@@ -174,12 +174,13 @@ def test_cache_readers_match_jax(tmp_path):
 
 def test_fake_has_exactly_the_planners_surface():
     """Every ``st.*`` the planner calls exists on the fake; a misspelled one
-    raises AttributeError (no catch-all)."""
+    raises AttributeError (no catch-all).  The fake also has the research
+    app's surface (``tests/test_torch_apps_research.py``)."""
     with open(planner.__file__) as f:
         used = set(re.findall(r"\bst\.(\w+)", f.read()))
     fake = FakeStreamlit()
     assert used and all(hasattr(fake, name) for name in used), used
-    for misspelled in ("sucess", "subheader", "dataframe", "pyplot"):
+    for misspelled in ("sucess", "subheadr", "dataframes", "plot"):
         with pytest.raises(AttributeError):
             getattr(fake, misspelled)("x")
         with pytest.raises(AttributeError):

@@ -1,7 +1,7 @@
 """The PyTorch port stands on torch and numpy alone (pandas, scipy, PIL,
-cv2, matplotlib, xarray and cdsapi are imported inside the functions that
-use them, rasterio where it is present), and never computes a CUDA call on
-the CPU."""
+cv2, matplotlib, seaborn, streamlit, xarray and cdsapi are imported inside
+the functions that use them, rasterio where it is present), and never
+computes a CUDA call on the CPU."""
 
 import os
 import subprocess
@@ -18,8 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "orbax", "yaml", "pandas", "matplotlib", "scipy",
-             "PIL", "cv2", "streamlit", "xarray", "cdsapi", "rasterio"):
+for name in ("jax", "flax", "optax", "orbax", "yaml", "pandas", "matplotlib", "seaborn",
+             "scipy", "PIL", "cv2", "streamlit", "xarray", "cdsapi", "rasterio"):
     sys.modules[name] = None          # any import of them raises ImportError
 import maunet_tpu_torch
 for mod in pkgutil.walk_packages(maunet_tpu_torch.__path__, "maunet_tpu_torch."):
@@ -79,14 +79,24 @@ TRAINING_FEATURE_MODULES = [
 ]
 
 
+# The research app, the EDA tools and figures, the interactive diagram, the
+# native decoder's binding and the logger, likewise.
+RESEARCH_APP_MODULES = [
+    "maunet_tpu_torch.apps.research", "maunet_tpu_torch.analysis.diagram_html",
+    "maunet_tpu_torch.analysis.figures", "maunet_tpu_torch.analysis.eda",
+    "maunet_tpu_torch.analysis.tile_viz", "maunet_tpu_torch.data.native",
+    "maunet_tpu_torch.utils.logging",
+]
+
+
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 68
+    assert len(imported) >= 75
     assert not set(TRAINING_MODULES + EVALUATION_MODULES + RESEARCH_MODULES
-                   + APP_MODULES + TRAINING_FEATURE_MODULES) - imported
+                   + APP_MODULES + TRAINING_FEATURE_MODULES + RESEARCH_APP_MODULES) - imported
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):
