@@ -151,6 +151,27 @@ Phases, one output line each (or a few for the kernel table):
    bit-equal to numpy's, and the loader suite prints its numpy, native and
    shards rows (16 samples).
 
+13. data parallelism (``parallel/``) at full width (``TrainConfig``'s
+   defaults, 256², T = 828, phase 6's data), TF32 off in every process:
+   (a) one ``train_step`` at global batch 16 from one seeded state, plainly
+   and under a world-size-1 NCCL group made by ``initialize_multihost``,
+   cuDNN deterministic: the parameters, running statistics and
+   ``grad_norm`` must be the same bits (the group's collectives are
+   skipped at one rank), and E, F, dW and C must launch; (b) two Gloo ranks
+   on ``cuda:0`` in two worker processes (``tests/torch_multihost_worker.py``):
+   one f32 SGD step (lr 1e-2, no momentum) at 8 + 8 rows against this
+   process's step on the same 16, parameters within 1e-5, the loss and the
+   running statistics within 1e-5 relative (with a floor of 1e-5 of each
+   tensor's largest statistic); both ranks must end with the same bits; then
+   one ``Trainer`` epoch of the two ranks: each rank's rows of every batch,
+   disjoint epoch rows covering the split, one val loss on both, and rank
+   0's checkpoint restored into a state of another seed reproducing it;
+   (c) ``evaluate_checkpoint`` of phase 5's U-Net over ``make_mesh`` of
+   ``[cuda:0]`` (the unsharded call's rows, bit for bit) and of ``[cuda:0,
+   cuda:0]`` (within phase 7's tolerance), and ``predict_many`` of 7
+   requests over the two-entry mesh (padded to 8) against the unsharded
+   call, within phase 5's tolerance; A, B, C and D must launch.
+
 The line before the last is the kernel summary JSON: per kernel the launch
 count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
 evaluation; G: the pair configuration), and over that path's shapes in phase
@@ -1993,6 +2014,305 @@ def research_app_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str],
     print(f"research app phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 13's two-rank Trainer epoch reads phase 6's train split in global
+# batches of TrainConfig's 16: 3 batches of 8 rows a rank.
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "torch_multihost_worker.py")
+DP_RANKS = 2
+# Steps timed after the compared one, in each rank and in this process.
+DP_TIMED = 3
+# The kernels a training step launches: E, F's two launches, dW and C.
+DP_TRAINING = ("lstm_forward_stash", "lstm_gate_terms", "lstm_backward", "lstm_dw",
+               "resize_pack")
+
+
+def run_ranks(tmpdir: str, name: str, tasks: list[dict], dev) -> str:
+    """The worker as ``DP_RANKS`` Gloo ranks sharing ``dev``; every rank
+    must exit 0 within 600 s.  Returns the directory they wrote to."""
+    out = os.path.join(tmpdir, f"dp_{name}")
+    os.makedirs(out)
+    spec = {"store": f"file://{tmpdir}/dp_store_{name}", "world": DP_RANKS,
+            "backend": "gloo", "device": str(dev), "threads": 2, "out": out, "tasks": tasks}
+    spec_path = os.path.join(tmpdir, f"dp_{name}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    logs = [open(os.path.join(out, f"log_{r}.txt"), "w+") for r in range(DP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, WORKER, spec_path, str(r)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DP_RANKS)]
+    deadline = time.monotonic() + 600
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:          # a rank left waiting on a failed one is stopped
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {name} exited {p.returncode}:\n{text[-3000:]}")
+    return out
+
+
+def same_bits(a: dict, b: dict) -> list[str]:
+    """The keys of two state_dicts whose tensors differ in any bit."""
+    return [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+
+
+def parallel_path(dev, tmpdir: str, data: str, checkpoint: str, smi: str) -> None:
+    """Phase 13: data-parallel training (a: a world-size-1 NCCL group, b: two
+    Gloo ranks on one card) and inference over a mesh that repeats the card
+    (c)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from maunet_tpu_torch.apps.engine import PlannerEngine
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.evaluate.evaluator import evaluate_checkpoint
+    from maunet_tpu_torch.losses import get_loss_fn
+    from maunet_tpu_torch.models.factory import UrbanPredictor
+    from maunet_tpu_torch.parallel.mesh import make_mesh
+    from maunet_tpu_torch.parallel.multihost import initialize_multihost, world_size
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.train.loop import Trainer
+    from maunet_tpu_torch.train.optimizers import make_optimizer
+    from maunet_tpu_torch.train.state import TrainState
+    from maunet_tpu_torch.train.steps import train_step
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig()
+    host = next(make_batches(NpzDataset(os.path.join(data, "train"), T_SERIES),
+                             cfg.batch_size))
+    batch = to_device(host_tensors(host, pin=dev.type == "cuda"), dev)
+    loss_fn = get_loss_fn(cfg.loss)
+    seeded = Trainer(cfg, data, work_dir=os.path.join(tmpdir, "dp_seed"), device=dev)
+
+    # (a) One step plainly and one under a world-size-1 NCCL group.
+    def step():
+        state = seeded.init_state(23)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, loss_fn)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return ({k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                float(metrics["grad_norm"]), ms)
+
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain_sd, plain_norm, _ = step()       # the first also selects cuDNN's algorithms
+        again_sd, again_norm, plain_ms = step()
+        initialize_multihost(f"file://{tmpdir}/nccl_store", 1, 0, backend="nccl", device=dev)
+        try:
+            if not (dist.get_backend() == "nccl" and world_size() == 1):
+                raise AssertionError("data parallel (a): no world-size-1 NCCL group")
+            fns = reset_launches()
+            group_sd, group_norm, group_ms = step()
+            launches = {name: fn.launches for name, fn in fns.items()}
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    differ = same_bits(plain_sd, group_sd)
+    repeat = same_bits(plain_sd, again_sd)
+    hw = batch["maps"].shape[1]
+    print(f"data parallel (a), NCCL at world size 1: one train step ({cfg.batch_size} x "
+          f"{hw}², T = {T_SERIES}, {cfg.compute_dtype}, {cfg.optimizer}) under the group "
+          f"{group_ms:.1f} ms, plain {plain_ms:.1f} ms (host clock around one synchronised "
+          f"step, cuDNN deterministic; {smi}; the plain time is the second plain step's); "
+          f"grad_norm {group_norm!r} vs {plain_norm!r}; tensors differing in any bit: "
+          f"{len(differ)} of {len(plain_sd)} (two plain steps: {len(repeat)}, grad_norm "
+          f"{again_norm!r}); launches={launches}")
+    if differ or group_norm != plain_norm:
+        raise AssertionError(f"data parallel (a): the group's step is not the plain step's "
+                             f"bits: {differ[:5]}")
+    missing = [n for n in DP_TRAINING if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"data parallel (a): kernels not launched: {missing}")
+
+    # (b) Two Gloo ranks sharing the card: one f32 SGD step against this
+    # process's, then one Trainer epoch.
+    # The Trainer's model for cfg (Trainer.init_state), in f32.
+    kwargs = dict(model_type=cfg.model_type, out_channels=len(cfg.target_channels),
+                  temporal_dim=cfg.temporal_dim, meta_dim=cfg.meta_dim,
+                  lstm_dim=cfg.lstm_hidden, base_filters=cfg.base_filters, in_channels=23,
+                  meta_features=cfg.nb_metadata_features,
+                  temporal_embeddings=cfg.temporal_embeddings,
+                  metadata_embeddings=cfg.metadata_embeddings, compute_dtype="float32")
+    model = UrbanPredictor(**{**kwargs, "compute_dtype": torch.float32},
+                           generator=torch.Generator().manual_seed(cfg.seed))
+    state_path = os.path.join(tmpdir, "dp_state.pt")
+    torch.save(model.state_dict(), state_path)
+    batch_path = os.path.join(tmpdir, "dp_batch.npz")
+    np.savez(batch_path, **host.as_dict())
+    model = model.to(dev)
+    state = TrainState(model, make_optimizer(model.parameters(), "sgd", 1e-2, 0.0, 0.0), 0)
+    single = {k: float(v) for k, v in train_step(state, batch, loss_fn).items()}
+    want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    single_ms = []
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, loss_fn)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, state
+    tasks = [{"kind": "step", "name": "step", "state": state_path, "batch": batch_path,
+              "model": kwargs, "optimizer": ["sgd", 1e-2, 0.0, 0.0], "loss": cfg.loss,
+              "timed": DP_TIMED},
+             {"kind": "epoch", "name": "epoch", "data": data,
+              "work": os.path.join(tmpdir, "dp_work"), "cfg": dataclasses.asdict(cfg)}]
+    t0 = time.perf_counter()
+    out = run_ranks(tmpdir, "gloo", tasks, dev)
+    ranks_wall = time.perf_counter() - t0
+    got = [torch.load(os.path.join(out, f"step_rank{r}.pt"), weights_only=True)
+           for r in range(DP_RANKS)]
+    worst = {"param": 0.0, "stat": 0.0}
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        a = got[0]["state_dict"][k]
+        if not torch.equal(a, got[1]["state_dict"][k]):
+            raise AssertionError(f"data parallel (b): the ranks' {k} differ")
+        err = float((a - v).abs().max())
+        if k.endswith(("running_mean", "running_var")):
+            scale = float(v.abs().max())
+            rel = float(((a - v).abs() / (v.abs() + scale)).max())
+            worst["stat"] = max(worst["stat"], rel)
+            if not bool(((a - v).abs() <= 1e-5 * v.abs() + 1e-5 * scale).all()):
+                raise AssertionError(f"data parallel (b): {k} differs beyond 1e-5")
+        else:
+            worst["param"] = max(worst["param"], err)
+            if err > 1e-5:
+                raise AssertionError(f"data parallel (b): {k} differs by {err:.3e}")
+    loss_rel = max(abs(r["metrics"]["total"] - single["total"]) / abs(single["total"])
+                   for r in got)
+    rank_launches = [json.load(open(os.path.join(out, f"step_rank{r}.launches.json")))
+                     for r in range(DP_RANKS)]
+    print(f"data parallel (b), two Gloo ranks on one card, one f32 SGD step ({DP_RANKS} x "
+          f"{cfg.batch_size // DP_RANKS} rows) against one process ({cfg.batch_size} rows): "
+          f"loss rel diff {loss_rel:.3e} (tol 1e-5), parameters max abs diff "
+          f"{worst['param']:.3e} (tol 1e-5), running statistics {worst['stat']:.3e} "
+          f"(tol 1e-5 of the value plus 1e-5 of the tensor's largest); f32 step "
+          f"{[round(statistics.median(r['timed_ms']), 1) for r in got]} ms a rank (the "
+          f"ranks share the card) against {statistics.median(single_ms):.1f} ms in one "
+          f"process (host clock, median of {DP_TIMED} synchronised steps after the compared "
+          f"one; {smi}); rank 0's launches={rank_launches[0]}")
+    if loss_rel > 1e-5:
+        raise AssertionError("data parallel (b): the loss differs beyond 1e-5")
+    if not all(r["lstm_forward_stash"] and r["lstm_dw"] and r["resize_pack"]
+               for r in rank_launches):
+        raise AssertionError("data parallel (b): a rank launched no E, dW or C")
+
+    ranks = [json.load(open(os.path.join(out, f"epoch_rank{r}.json")))
+             for r in range(DP_RANKS)]
+    per_rank, n_train = cfg.batch_size // DP_RANKS, SAMPLES["train"]
+    epoch_rows = []
+    for r, res in enumerate(ranks):
+        if res["host_slice"] != [r * per_rank, (r + 1) * per_rank] or \
+                res["data_parallel"] != DP_RANKS:
+            raise AssertionError(f"data parallel (b): rank {r} loads rows {res['host_slice']}")
+        if len(res["seen"]) != per_rank * (1 + n_train // cfg.batch_size):
+            raise AssertionError(f"data parallel (b): rank {r} loaded {len(res['seen'])} rows")
+        epoch_rows.append(set(res["seen"][per_rank:]))
+        if not (math.isfinite(res["best_val_loss"])
+                and res["best_val_loss"] == ranks[0]["best_val_loss"]
+                and abs(res["val_restored"] - res["best_val_loss"])
+                <= 1e-6 * abs(res["best_val_loss"]) and res["restored_epoch"] == 0):
+            raise AssertionError(f"data parallel (b): rank {r}'s val loss {res}")
+    if epoch_rows[0] & epoch_rows[1] or epoch_rows[0] | epoch_rows[1] != set(range(n_train)):
+        raise AssertionError("data parallel (b): the ranks' epoch rows overlap or miss some")
+    print(f"data parallel (b), one Trainer epoch of two ranks ({n_train // cfg.batch_size} "
+          f"steps of {DP_RANKS} x {per_rank} rows, bf16, {cfg.optimizer}): val loss "
+          f"{ranks[0]['best_val_loss']!r} on both ranks, restored {ranks[0]['val_restored']!r}; "
+          f"rows disjoint and covering the split; {[round(r['seconds'], 1) for r in ranks]} s "
+          f"a rank for the epoch, {ranks_wall:.1f} s for both tasks with the start of two "
+          f"processes (host clock)")
+
+    # (c) Inference over a mesh that names the card once and twice.
+    cfg_eval = TrainConfig()
+    fns = reset_launches()
+
+    def evaluate(name, mesh):
+        out_dir = os.path.join(tmpdir, f"dp_eval_{name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_checkpoint(checkpoint, cfg_eval, data_dir=data, study_name="dp",
+                            n_visualize=0, output_dir=out_dir, batch_size=EVAL_BATCH,
+                            device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = glob.glob(os.path.join(out_dir, "*_evaluation.csv"))[0]
+        with open(path, newline="") as f:
+            return list(csv.reader(f)), wall
+
+    whole, whole_s = evaluate("whole", None)
+    one, one_s = evaluate("one", make_mesh(devices=[dev]))
+    two, two_s = evaluate("two", make_mesh(devices=[dev, dev]))
+    if one != whole:
+        raise AssertionError("data parallel (c): a one-entry mesh's CSV is not the unsharded one")
+    header = whole[0]
+    tols = {"mae": 1e-2, "rmse": 1e-2, "laplacian_var_pred": 5e-2, "laplacian_var_gt": 5e-2}
+    cols = {header.index(c): c for c in tols}
+    worst = dict.fromkeys(tols, 0.0)
+    if len(two) != len(whole) or two[0] != header:
+        raise AssertionError("data parallel (c): the two-entry mesh's CSV has other rows")
+    for a, b in zip(two[1:], whole[1:]):
+        if [v for i, v in enumerate(a) if i not in cols] != \
+                [v for i, v in enumerate(b) if i not in cols]:
+            raise AssertionError(f"data parallel (c): rows differ: {a[:3]} vs {b[:3]}")
+        for i, c in cols.items():
+            if (a[i] == "") != (b[i] == ""):
+                raise AssertionError(f"data parallel (c): {c} is empty in one CSV only")
+            if b[i]:
+                rel = abs(float(a[i]) - float(b[i])) / max(abs(float(b[i])), 1e-12)
+                worst[c] = max(worst[c], rel)
+    if any(worst[c] > tols[c] for c in tols):
+        raise AssertionError(f"data parallel (c): the two-entry mesh's rows differ: {worst}")
+
+    engine = PlannerEngine(checkpoint, device=dev, temp_query=StubTempQuery(),
+                           temporal_length=T_SERIES)
+    meshed = PlannerEngine(checkpoint, device=dev, temp_query=StubTempQuery(),
+                           temporal_length=T_SERIES, mesh=make_mesh(devices=[dev, dev]))
+    rng = np.random.default_rng(SEED + 13)
+    args = (2_800_000, 2023, 7, 2025, 7)
+    requests = [engine.prepare_input(make_layers(rng, 256), None,
+                                     float(rng.uniform(-60, 60)),
+                                     float(rng.uniform(-180, 180)), *args) for _ in range(7)]
+    many, want_many = meshed.predict_many(requests), engine.predict_many(requests)
+    got_arr = np.stack([np.stack([nd, (ls - engine.stats.temp_mean) / engine.stats.temp_std])
+                        for nd, ls in many])
+    want_arr = np.stack([np.stack([nd, (ls - engine.stats.temp_mean) / engine.stats.temp_std])
+                         for nd, ls in want_many])
+    for i, (nd, ls) in enumerate(many):
+        check_outputs(f"predict_many over the mesh [{i}]", nd, ls, 256)
+    diff, scale = float(np.abs(got_arr - want_arr).max()), float(np.abs(want_arr).max())
+    launches = {name: fn.launches for name, fn in fns.items()}
+    print(f"data parallel (c), inference over a mesh of the card: evaluate_checkpoint "
+          f"({SAMPLES['test']} samples, batches of {EVAL_BATCH}) unsharded {whole_s:.2f} s, "
+          f"[{dev}] {one_s:.2f} s (CSV bit-equal), [{dev}, {dev}] {two_s:.2f} s (max "
+          f"relative difference " + ", ".join(f"{c} {v:.2e}" for c, v in worst.items())
+          + f"; tol 1e-2, Laplacian variances 5e-2) (host clock; {smi}); predict_many of 7 "
+          f"over [{dev}, {dev}] against unsharded: max_abs_diff={diff:.4e} (tol "
+          f"{0.05 * max(scale, 1.0):.4f}); launches={launches}")
+    if diff > 0.05 * max(scale, 1.0):
+        raise AssertionError("data parallel (c): predict_many over the mesh disagrees")
+    missing = [n for n in ("conv3x3_fused", "lstm_last_hidden", "resize_pack",
+                           "masked_class_sums") if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"data parallel (c): kernels not launched: {missing}")
+    print(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -2052,6 +2372,7 @@ def main() -> int:
         planner_path(dev, tmpdir, checkpoints["unet"])
         science_path(dev, tmpdir)
         research_app_path(dev, tmpdir, data, checkpoints, smi[0])
+        parallel_path(dev, tmpdir, data, checkpoints["unet"], smi[0])
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[path][name], **table.summary(name)}

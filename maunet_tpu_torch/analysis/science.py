@@ -28,7 +28,9 @@ Run: ``python -m maunet_tpu_torch.analysis.science --work-dir reports/science``
 
 The port of ``maunet_tpu/analysis/science.py`` onto the port's
 ``generate_dataset``, ``Trainer``, ``evaluate_checkpoint``, sweeps and
-``stats``, with the same defaults and the same summary; there is no mesh.
+``stats``, with the same defaults and the same summary.  ``use_mesh``, as
+in JAX, goes to the ``Trainer`` alone: it trains data-parallel over the
+ranks of an initialised process group (off by default, as there).
 pandas is imported inside the functions that read the CSVs.  Where
 matplotlib is not installed the metadata sweeps write their JSONs only and
 the cross-model comparison figures are skipped, each with a logged line.
@@ -153,6 +155,7 @@ def run_science_loop(
     temporal_signal: float = 1.5,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    use_mesh: bool = False,
 ) -> dict:
     from maunet_tpu_torch.analysis import plots
     from maunet_tpu_torch.analysis.compare import compare_sensitivity
@@ -185,7 +188,7 @@ def run_science_loop(
         study = f"science-{name}"
         trainer = Trainer(cfg, data_dir=data_dir,
                           work_dir=os.path.join(work_dir, "training"),
-                          study_name=study, device=device)
+                          study_name=study, device=device, use_mesh=use_mesh)
         log.info(f"=== Training variant {name} "
                  f"(temporal={temporal}, metadata={metadata}) ===")
         result = trainer.train(epochs=epochs)

@@ -4,8 +4,10 @@ Port of ``maunet_tpu/apps/engine.py``: checkpoint loading, canvas -> Dynamic
 World map conversion, 23-channel input assembly, inference, physical-unit
 denormalization and the mean-cooling headline metric.  The device is an
 explicit argument; ``predict`` and ``predict_many`` move their inputs to it,
-run under ``torch.inference_mode()`` and return numpy arrays.  The JAX
-engine's device-mesh serving is not ported.
+run under ``torch.inference_mode()`` and return numpy arrays.  With a mesh,
+``predict_many`` serves a request batch data-parallel over its devices
+(``parallel.infer``), padded to a multiple of the mesh's size with repeats
+of the last request, whose rows are dropped again.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from maunet_tpu_torch.data.schema import NormalizationStats
+from maunet_tpu_torch.parallel.infer import round_up_to_mesh, shard_batch_fn
+from maunet_tpu_torch.parallel.mesh import Mesh
 
 log = logging.getLogger(__name__)
 
@@ -77,6 +81,17 @@ def canvas_to_dw_map(canvas_rgba: np.ndarray, target_shape: tuple[int, int],
     return nearest.astype(np.uint8)
 
 
+# A request batch's inputs, in the model's argument order, with their dtypes.
+_INPUTS = (("maps", torch.float32), ("temp_series", torch.float32),
+           ("metadata", torch.float32), ("temp_lengths", torch.int32))
+
+
+def _apply(model: torch.nn.Module, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The model on one shard of a request batch, in inference mode."""
+    with torch.inference_mode():
+        return model(*(batch[k] for k, _ in _INPUTS))
+
+
 @dataclass
 class PlannerInput:
     maps: np.ndarray         # (1, H, W, 23)
@@ -90,9 +105,11 @@ class PlannerEngine:
 
     def __init__(self, checkpoint_path: str, *, device: str | torch.device,
                  stats: NormalizationStats | None = None, temp_query=None,
-                 temporal_length: int = 828, img_size: int = 512):
+                 temporal_length: int = 828, img_size: int = 512,
+                 mesh: Mesh | None = None):
         """``img_size``: the side of the layers the planner fetches and shows
-        (the JAX engine's, kept for the app; the model takes any size)."""
+        (the JAX engine's, kept for the app; the model takes any size).
+        ``mesh``: the devices ``predict_many`` shards request batches over."""
         from maunet_tpu_torch.evaluate.checkpoint import load_any_checkpoint
 
         self.device = torch.device(device)
@@ -105,6 +122,8 @@ class PlannerEngine:
         self.metadata_features = int(self.loaded.hyperparams.get(
             "metadata_input_length",
             self.loaded.meta.get("metadata_input_length", 8)))
+        self.mesh = mesh
+        self._forward_many = None if mesh is None else shard_batch_fn(_apply, mesh)
         log.info(f"PlannerEngine ready: {self.loaded.hyperparams.get('model_type')} "
                  f"({checkpoint_path}) on {self.device}")
 
@@ -182,13 +201,17 @@ class PlannerEngine:
 
     def predict_many(self, inputs: list[PlannerInput]
                      ) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Batched prediction over a request list, as one forward on the
-        engine's device."""
-        out = self._forward(
-            np.concatenate([i.maps for i in inputs]),
-            np.concatenate([i.temp_series for i in inputs]),
-            np.concatenate([i.metadata for i in inputs]),
-            np.concatenate([i.temp_lengths for i in inputs]))
+        """Batched prediction over a request list: one forward on the
+        engine's device, or data-parallel over the engine's mesh."""
+        arrays = [np.concatenate([getattr(i, k) for i in inputs]) for k, _ in _INPUTS]
+        if self._forward_many is None:
+            out = self._forward(*arrays)
+        else:
+            n = len(inputs)
+            pad = round_up_to_mesh(n, self.mesh) - n
+            batch = {k: torch.as_tensor(np.concatenate([v] + [v[-1:]] * pad), dtype=dtype)
+                     for (k, dtype), v in zip(_INPUTS, arrays)}
+            out = self._forward_many(self.model, batch).float().cpu().numpy()[:n]
         s = self.stats
         return [(o[..., 0], o[..., 1] * s.temp_std + s.temp_mean) for o in out]
 

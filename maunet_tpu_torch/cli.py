@@ -52,8 +52,13 @@ log = logging.getLogger(__name__)
 _DATASET_KEYS = ("temporal_length", "nb_metadata_features", "input_channels",
                  "target_channels")
 _LOGGING_KEYS = ("frequency_log", "frequency_plt")
-_TRAINING_KEYS = tuple(f.name for f in dataclasses.fields(TrainConfig)
-                       if f.name not in _DATASET_KEYS + _LOGGING_KEYS + ("seed",))
+# TrainConfig's mesh sizes: the command line runs one process, so it takes
+# none of them (a data-parallel run starts one process per rank, each calling
+# Trainer itself; README.md).
+_PARALLEL_KEYS = ("data_parallel", "spatial_parallel")
+_TRAINING_KEYS = tuple(
+    f.name for f in dataclasses.fields(TrainConfig)
+    if f.name not in _DATASET_KEYS + _LOGGING_KEYS + _PARALLEL_KEYS + ("seed",))
 
 
 def config_field(key: str) -> str | None:
@@ -200,7 +205,7 @@ def cmd_evaluate(args) -> int:
         args.checkpoint_path, load_cfg(args), data_dir=args.data_dir,
         study_name=args.study_name, jobid=args.jobid, n_visualize=n_visualize,
         output_dir=args.output_dir, batch_size=args.batch_size,
-        precision=args.precision, device=args.device)
+        precision=args.precision, device=args.device, use_mesh=args.use_mesh)
     return 0
 
 
@@ -393,6 +398,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--output-dir", default="reports/tests")
     sp.add_argument("--precision", default="bfloat16", choices=["bfloat16", "float32"],
                     help="float32 for exact parity with reference numbers")
+    sp.add_argument("--use-mesh", action="store_true",
+                    help="run the batches data-parallel over every visible CUDA device "
+                         "(the batch size rounds up to a multiple of their number)")
     sp.set_defaults(fn=cmd_evaluate)
 
     sp = sub.add_parser("synth-data", help="generate a synthetic dataset")

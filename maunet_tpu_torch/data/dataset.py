@@ -7,8 +7,7 @@ pipeline.  The series is padded to the configured length with an explicit
 length vector, batches are dicts of NHWC numpy arrays, and the last partial
 batch is padded with a ``valid`` mask.  Files are decoded by the native C++
 decoder (``data/native.py``) where it builds, else by numpy; both give the
-same bits.  Left out: the multi-host ``sample_slice`` and ``pad_final``,
-which no caller turns off.
+same bits.
 """
 
 from __future__ import annotations
@@ -108,10 +107,17 @@ class NpzDataset:
 
 
 def make_batches(dataset: NpzDataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, epoch: int = 0, drop_last: bool = False) -> Iterator[Batch]:
+                 seed: int = 0, epoch: int = 0, drop_last: bool = False,
+                 pad_final: bool = True, sample_slice: slice | None = None) -> Iterator[Batch]:
     """Yield fixed-shape Batches.  Shuffling is seeded and epoch-keyed, the
     same permutation as the JAX package's.  A last partial batch is dropped
-    (``drop_last``) or padded with its last sample and marked in ``valid``."""
+    (``drop_last``), padded with its last sample and marked in ``valid``
+    (``pad_final``), or yielded short.
+
+    ``sample_slice`` picks this rank's rows of each global batch
+    (``parallel.multihost.host_batch_slice``): every rank draws the same
+    permutation and loads only its own rows, so no sample is read twice
+    across the ranks; a batch with no rows in the slice is skipped."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
@@ -122,9 +128,14 @@ def make_batches(dataset: NpzDataset, batch_size: int, shuffle: bool = False,
         if len(idx) < batch_size:
             if drop_last:
                 return
-            pad = np.full(batch_size - len(idx), idx[-1], idx.dtype)
-            valid = np.concatenate([valid, np.zeros(len(pad), bool)])
-            idx = np.concatenate([idx, pad])
+            if pad_final:
+                pad = np.full(batch_size - len(idx), idx[-1], idx.dtype)
+                valid = np.concatenate([valid, np.zeros(len(pad), bool)])
+                idx = np.concatenate([idx, pad])
+        if sample_slice is not None:
+            idx, valid = idx[sample_slice], valid[sample_slice]
+            if idx.size == 0:
+                continue
         samples = [dataset[int(i)] for i in idx]
         stack = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
         yield Batch(valid=valid, sample_idx=idx.astype(np.int32), **stack)

@@ -5,7 +5,9 @@ worker thread decodes the ``.npz`` batches ahead of the consumer and pins
 them in page-locked host memory; the consumer's thread issues the
 ``non_blocking`` copies on its current stream, so each copy is ordered
 before the compute that reads it and overlaps the host's work on the next
-step.  On the CPU the arrays become tensors without a copy.
+step.  On the CPU the arrays become tensors without a copy.  Under data
+parallelism each rank runs its own pipeline over its own rows of every
+global batch (``make_batches``' ``sample_slice``) into its own device.
 """
 
 from __future__ import annotations

@@ -23,7 +23,10 @@ from the JAX evaluator, both deliberate:
 Both CSVs are written with the ``csv`` module as ``DataFrame.to_csv`` would
 write them: ``None`` and NaN as empty fields, booleans as ``True``/``False``,
 floats by ``repr``.  The test split is read packed or per sample
-(``data.open_split``).  Left out: the device mesh and trackers.
+(``data.open_split``).  With a mesh (``mesh``, or ``use_mesh``: every
+visible CUDA device) the forward and the metrics run data-parallel over its
+devices (``parallel.infer``, JAX evaluator.py:161-215), the batch size
+rounded up to a multiple of the mesh's size.  Left out: trackers.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from maunet_tpu_torch.evaluate.metrics import (
     eval_metrics,
     unnormalize_targets,
 )
+from maunet_tpu_torch.parallel.infer import round_up_to_mesh, shard_batch_fn
+from maunet_tpu_torch.parallel.mesh import Mesh, make_mesh
 from maunet_tpu_torch.train.config import TrainConfig
 from maunet_tpu_torch.train.steps import forward_fn
 from maunet_tpu_torch.utils.dw import DW_CLASSES
@@ -145,15 +150,24 @@ def evaluate_checkpoint(
     batch_size: int | None = None,
     precision: str = "bfloat16",
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
+    use_mesh: bool = False,
 ) -> list[dict]:
     """Evaluate a ``.pth`` checkpoint on ``<data_dir>/test``; writes the
     evaluation CSV and its ``_info.csv`` under ``output_dir`` and returns the
-    CSV's rows."""
+    CSV's rows.  ``mesh`` runs the batches data-parallel over its devices;
+    ``use_mesh`` without a mesh makes one of every visible CUDA device (of
+    ``device`` alone for a CPU device).  The model loads onto the mesh's
+    first device, which the batches reach first."""
     cfg = cfg or TrainConfig()
     if data_dir is None:
         raise ValueError("evaluate_checkpoint needs data_dir: the directory "
                          "that holds the test split")
     device = torch.device(device)
+    if mesh is None and use_mesh:
+        mesh = make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
+    if mesh is not None:
+        device = mesh.devices[0]
     compute_dtype = torch.float32 if precision == "float32" else torch.bfloat16
     loaded = load_any_checkpoint(checkpoint_path, study_name,
                                  compute_dtype=compute_dtype, device=device)
@@ -245,10 +259,15 @@ def evaluate_checkpoint(
                 created_visuals += 1
             sample_idx += 1
 
+    if mesh is not None:
+        batch_size = round_up_to_mesh(batch_size, mesh)
+        sharded = shard_batch_fn(
+            lambda model, batch: batch_metrics(model, batch, stats, metadata_features), mesh)
     pending: collections.deque[dict] = collections.deque()
     for j, batch in enumerate(prefetch_to_device(make_batches(ds, batch_size), device)):
-        metrics, outputs_un, targets_un = batch_metrics(
-            loaded.model, batch, stats, metadata_features)
+        metrics, outputs_un, targets_un = (
+            sharded(loaded.model, batch) if mesh is not None
+            else batch_metrics(loaded.model, batch, stats, metadata_features))
         entry = {"metrics": metrics, "valid": batch["valid"],
                  "t1": batch["t1_dates"], "t2": batch["t2_dates"]}
         # Valid samples before this batch: only the last batch is padded.

@@ -37,11 +37,13 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from maunet_tpu_torch.ops import train_conv
 from maunet_tpu_torch.ops.kernels import packed_vgg as pvgg
+from maunet_tpu_torch.parallel.multihost import world_size
 
 # JAX sends exactly the convs of output width 64 (the U-Net's level-0 row) to
 # the fused Pallas kernel at the serving config; wider convs are plain XLA
@@ -214,10 +216,25 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     mean and the biased variance E[y^2] - E[y]^2 (clamped at 0) in f32, and
     running statistics updated in place with momentum 0.1 from the biased
     variance (torch's own BatchNorm would use the unbiased one), except
-    under :func:`frozen_batch_statistics`."""
+    under :func:`frozen_batch_statistics`.
+
+    Under data parallelism the batch is the global one, as under JAX's GSPMD
+    (the mean runs over the sharded batch axis): each rank's per-channel
+    [sum y, sum y^2, count] is summed over the process group by a
+    differentiable all-reduce, whose backward sums the gradients of those
+    sums over the ranks; every rank then updates the running statistics
+    alike.  With one rank nothing is exchanged."""
     yf = y.float()
-    mean = yf.mean(dim=(0, 1, 2))
-    var = ((yf * yf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+    if world_size() > 1:
+        count = torch.full((1,), yf[..., 0].numel(), dtype=torch.float32, device=y.device)
+        sums = torch.cat([yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2)), count])
+        sums = dist_fn.all_reduce(sums)
+        c = y.shape[-1]
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+    else:
+        mean = yf.mean(dim=(0, 1, 2))
+        var = ((yf * yf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
     if not getattr(_frozen, "on", False):
         with torch.no_grad():
             m = bn.momentum

@@ -115,6 +115,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(what: str, name: str, argtypes: list, t: torch.Tensor, *args) -> None:
+    """Call the C entry point ``name`` (``argtypes`` as for :func:`function`,
+    the stream last) with ``args`` and the current stream of ``t``'s device,
+    with that device made current for the call: the entry points read the
+    SM count and the shared-memory opt-in of the runtime's current device,
+    and launch on it.  A model replica on ``cuda:1`` then runs there.
+    Raises on a CUDA error."""
+    with torch.cuda.device(t.get_device()):   # -1, a CPU tensor: no device
+        check(function(name, argtypes)(*args, stream_of(t)), what)
+
+
 def on_cpu(t: torch.Tensor, what: str) -> bool:
     """True for a CPU tensor (the wrapper then runs the plain version), False
     for a CUDA tensor (the wrapper launches the kernel); any other device

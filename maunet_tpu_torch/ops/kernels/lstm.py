@@ -245,12 +245,10 @@ def lstm_forward_stash(x_proj: torch.Tensor, w_hh: torch.Tensor,
     out = torch.empty((b, hidden), dtype=torch.float32, device=dev)
     h_all = torch.empty((b, t, hidden), dtype=torch.float32, device=dev)
     c_all = torch.empty_like(h_all)
-    fn = _build.function("maunet_lstm_forward_stash",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                         + [ctypes.c_void_p])
-    _build.check(fn(x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), h_all.data_ptr(), c_all.data_ptr(), b, t,
-                    hidden, _build.stream_of(x_proj)), what)
+    _build.launch(what, "maunet_lstm_forward_stash",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p], x_proj,
+                  x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  h_all.data_ptr(), c_all.data_ptr(), b, t, hidden)
     lstm_forward_stash.launches += 1
     return out, h_all, c_all
 
@@ -262,11 +260,10 @@ def _gate_terms_launch(x_proj: torch.Tensor, w_hh: torch.Tensor,
     b, t, four_h = x_proj.shape
     hidden = four_h // 4
     terms = torch.empty((b, t, 6 * hidden), dtype=torch.float32, device=x_proj.device)
-    fn = _build.function("maunet_lstm_gate_terms",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    _build.check(fn(x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
-                    h_all.data_ptr(), c_all.data_ptr(), terms.data_ptr(), b, t,
-                    hidden, _build.stream_of(x_proj)), "lstm_gate_terms")
+    _build.launch("lstm_gate_terms", "maunet_lstm_gate_terms",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p], x_proj,
+                  x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), h_all.data_ptr(),
+                  c_all.data_ptr(), terms.data_ptr(), b, t, hidden)
     lstm_gate_terms.launches += 1
     return terms
 
@@ -297,11 +294,10 @@ def _backward_recur(terms: torch.Tensor, w_hh: torch.Tensor,
     b, t, six_h = terms.shape
     hidden = six_h // 6
     dx = torch.empty((b, t, 4 * hidden), dtype=torch.float32, device=terms.device)
-    fn = _build.function("maunet_lstm_backward",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    _build.check(fn(terms.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), g.data_ptr(),
-                    dx.data_ptr(), b, t, hidden, _build.stream_of(terms)),
-                 "lstm_backward")
+    _build.launch("lstm_backward", "maunet_lstm_backward",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p], terms,
+                  terms.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), g.data_ptr(),
+                  dx.data_ptr(), b, t, hidden)
     lstm_backward.launches += 1
     return dx
 
@@ -356,12 +352,10 @@ def lstm_dw(h_all: torch.Tensor, dx_proj: torch.Tensor,
     partial = torch.empty((plan["slices"], hidden, four_h), dtype=torch.float32,
                           device=dx_proj.device)
     dw = torch.empty((hidden, four_h), dtype=torch.float32, device=dx_proj.device)
-    fn = _build.function("maunet_lstm_dw",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                         + [ctypes.c_void_p])
-    _build.check(fn(h_all.data_ptr(), dx_proj.data_ptr(), lengths.data_ptr(),
-                    partial.data_ptr(), dw.data_ptr(), b, t, hidden, plan["slices"],
-                    plan["rows_per_slice"], _build.stream_of(dx_proj)), what)
+    _build.launch(what, "maunet_lstm_dw",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p], dx_proj,
+                  h_all.data_ptr(), dx_proj.data_ptr(), lengths.data_ptr(), partial.data_ptr(),
+                  dw.data_ptr(), b, t, hidden, plan["slices"], plan["rows_per_slice"])
     lstm_dw.launches += 1
     return dw
 
@@ -403,11 +397,10 @@ def lstm_last_hidden(x_proj: torch.Tensor, w_hh: torch.Tensor,
     b, t, hidden = _check_lstm_args(what, x_proj, w_hh, lengths,
                                     max_hidden=FWD_MAX_HIDDEN)
     out = torch.empty((b, hidden), dtype=torch.float32, device=x_proj.device)
-    fn = _build.function("maunet_lstm_last_hidden",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                         + [ctypes.c_void_p])
-    _build.check(fn(x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), b, t, hidden, _build.stream_of(x_proj)), what)
+    _build.launch(what, "maunet_lstm_last_hidden",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p], x_proj,
+                  x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  b, t, hidden)
     lstm_last_hidden.launches += 1
     return out
 

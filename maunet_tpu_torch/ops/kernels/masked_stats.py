@@ -88,9 +88,9 @@ def masked_class_sums(pred: torch.Tensor, target: torch.Tensor,
                    and dw_map.is_contiguous(), what, "inputs must be contiguous")
     _build.require(b <= 65535 and h * w > 0, what, lambda: f"batch {b} of {h}x{w} pixels")
     out = torch.empty((b, NUM_CLASSES * (2 * c + 1)), dtype=torch.float32, device=dev)
-    _build.check(_build.function("maunet_masked_class_sums", _ARGTYPES)(
-        pred.data_ptr(), target.data_ptr(), dw_map.data_ptr(), out.data_ptr(), b, h * w, c,
-        _DTYPES[pred.dtype], _build.stream_of(pred)), what)
+    _build.launch(what, "maunet_masked_class_sums", _ARGTYPES, pred,
+                  pred.data_ptr(), target.data_ptr(), dw_map.data_ptr(), out.data_ptr(),
+                  b, h * w, c, _DTYPES[pred.dtype])
     masked_class_sums.launches += 1
     return split_sums(out, c)
 

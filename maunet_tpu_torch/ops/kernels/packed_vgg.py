@@ -259,17 +259,14 @@ def conv3x3_fused(parts: Sequence[torch.Tensor],
     out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=parts[0].device)
     xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
     cins = (ctypes.c_int * len(parts))(*prepared.cins)
-    fn = _build.function("maunet_conv3x3_fused",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                         + [ctypes.c_void_p] * 2)
-    _build.check(fn(ctypes.addressof(xs), prepared.packed.data_ptr(),
-                    ctypes.addressof(cins), len(parts),
-                    None if add is None else add.data_ptr(),
-                    None if prepared.bias is None else prepared.bias.data_ptr(),
-                    out.data_ptr(), b, h, w, cout, int(relu),
-                    None if prepared.scale is None else prepared.scale.data_ptr(),
-                    _build.stream_of(out)), what)
+    _build.launch(what, "maunet_conv3x3_fused",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2, out,
+                  ctypes.addressof(xs), prepared.packed.data_ptr(), ctypes.addressof(cins),
+                  len(parts), None if add is None else add.data_ptr(),
+                  None if prepared.bias is None else prepared.bias.data_ptr(),
+                  out.data_ptr(), b, h, w, cout, int(relu),
+                  None if prepared.scale is None else prepared.scale.data_ptr())
     conv3x3_fused.launches += 1
     return out
 
@@ -361,18 +358,16 @@ def conv3x3_pair_fused(parts: Sequence[torch.Tensor],
     out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=parts[0].device)
     xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
     cins = (ctypes.c_int * len(parts))(*prepared1.cins)
-    fn = _build.function("maunet_conv3x3_pair",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                         + [ctypes.c_void_p] * 2)
-    _build.check(fn(ctypes.addressof(xs), prepared1.packed.data_ptr(),
-                    ctypes.addressof(cins), len(parts), prepared2.packed.data_ptr(),
-                    None if add is None else add.data_ptr(),
-                    None if prepared1.bias is None else prepared1.bias.data_ptr(),
-                    None if prepared2.bias is None else prepared2.bias.data_ptr(),
-                    out.data_ptr(), b, h, w, cmid, cout,
-                    None if prepared1.scale is None else prepared1.scale.data_ptr(),
-                    _build.stream_of(out)), what)
+    _build.launch(what, "maunet_conv3x3_pair",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2, out,
+                  ctypes.addressof(xs), prepared1.packed.data_ptr(), ctypes.addressof(cins),
+                  len(parts), prepared2.packed.data_ptr(),
+                  None if add is None else add.data_ptr(),
+                  None if prepared1.bias is None else prepared1.bias.data_ptr(),
+                  None if prepared2.bias is None else prepared2.bias.data_ptr(),
+                  out.data_ptr(), b, h, w, cmid, cout,
+                  None if prepared1.scale is None else prepared1.scale.data_ptr())
     conv3x3_pair_fused.launches += 1
     return out
 

@@ -120,11 +120,9 @@ def _launch(x: torch.Tensor, out_hw: tuple[int, int], rows: int) -> torch.Tensor
     b, h, w, c = x.shape
     oh, ow = out_hw
     y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
-    fn = _build.function("maunet_resize_align_corners",
-                         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8
-                         + [ctypes.c_void_p])
-    _build.check(fn(x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow,
-                    rows, _build.stream_of(x)), "resize_pack")
+    _build.launch("resize_pack", "maunet_resize_align_corners",
+                  [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+                  x, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow, rows)
     resize_pack.launches += 1
     return y
 

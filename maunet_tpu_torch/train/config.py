@@ -3,9 +3,11 @@
 The fields of ``maunet_tpu/config/config.py`` that the port's ``Trainer``
 reads, flat, with the same defaults: ``TrainingConfig`` (reference
 conf/config.yaml:40-52), ``LoggingConfig.frequency_log`` and
-``frequency_plt``, ``seed``, and the dataset fields the loop needs.  A copy,
-because ``maunet_tpu.config`` imports PyYAML.  Left out:
-``keep_last_checkpoints`` (read by nothing) and the mesh (ROADMAP.md).
+``frequency_plt``, ``seed``, the dataset fields the loop needs and
+``ParallelConfig``'s mesh sizes.  A copy, because ``maunet_tpu.config``
+imports PyYAML.  Left out: ``keep_last_checkpoints`` (read by nothing) and
+the mesh's axis names (the port's ``Mesh`` names its axes ``data`` and
+``spatial``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ class TrainConfig:
         "change_mask", "before_dw", "after_dw",
     )
     target_channels: tuple[str, ...] = ("after_ndvi", "after_temp")
+    # ParallelConfig: the data axis is the process group's world size
+    # (parallel/mesh.data_axis_size); the spatial axis is not ported.
+    data_parallel: int = -1            # -1: every rank
+    spatial_parallel: int = 1
 
 
 def hyperparams_from_config(cfg: TrainConfig) -> dict[str, Any]:

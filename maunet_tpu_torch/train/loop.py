@@ -9,7 +9,18 @@ the CLI's HPO studies use) and trackers (``utils/tracking.py``), which get
 the step and epoch rows the JAX loop gives them, and prediction plots every
 ``frequency_plt`` steps (``train/visualize.py``, handed to each tracker's
 ``log_image``; where matplotlib is missing, one logged line and training
-goes on).  Left out (ROADMAP.md): the device mesh and multi-host input.
+goes on).
+
+Data parallelism (JAX ``use_mesh``, loop.py:124-175): with a process group
+of several ranks (``parallel.multihost``), each rank, on its own device,
+loads its slice of every global batch (``make_batches``' ``sample_slice``),
+flips its own rows from its own ``RandomFlip(cfg.seed)`` in loading order,
+as each JAX process does, and takes the global step (``train.steps``).
+Validation sums are added over the ranks, so every rank gets the same val
+loss.  Rank 0 alone writes the CSV, the checkpoints and the tracker rows,
+and the others wait for it at a barrier; on resume every rank reads the
+file.  No prediction plots are drawn with more than one rank (JAX
+loop.py:304-308).  The spatial axis is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from maunet_tpu_torch.data import open_split
 from maunet_tpu_torch.data.dataset import make_batches
@@ -30,6 +42,8 @@ from maunet_tpu_torch.data.pipeline import prefetch_to_device
 from maunet_tpu_torch.data.transforms import RandomFlip
 from maunet_tpu_torch.losses import get_loss_fn
 from maunet_tpu_torch.models.factory import UrbanPredictor
+from maunet_tpu_torch.parallel.mesh import data_axis_size
+from maunet_tpu_torch.parallel.multihost import host_batch_slice, rank, world_size
 from maunet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from maunet_tpu_torch.train.config import TrainConfig, hyperparams_from_config
 from maunet_tpu_torch.train.metrics import CSVLogger, RunningLoss
@@ -50,18 +64,45 @@ class TrainResult:
     history: list[dict] = field(default_factory=list)
 
 
+class _NullCSVLogger:
+    """The CSV of a rank other than 0: its rows are rank 0's."""
+
+    def log(self, row: dict) -> None:
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, data_dir: str,
                  work_dir: str = "reports/training",
                  study_name: str = "urban-predictor", trial_id: int = 0,
-                 device: str | torch.device = "cuda", trackers: list | None = None):
+                 device: str | torch.device = "cuda", trackers: list | None = None,
+                 use_mesh: bool = True):
+        """``device`` is this rank's.  ``use_mesh``: train data-parallel over
+        the ranks of the process group (``cfg.data_parallel`` must be -1 or
+        their number; one rank, or none, is a single device); without it a
+        group of more than one rank is refused."""
         self.cfg = cfg
         self.data_dir = data_dir
         self.work_dir = work_dir
         self.study_name = study_name
         self.trial_id = trial_id
         self.device = torch.device(device)
-        self.trackers = trackers or []
+        if use_mesh:
+            self.data_parallel = data_axis_size(cfg.data_parallel, cfg.spatial_parallel)
+        elif world_size() > 1:
+            raise ValueError("use_mesh=False trains on one device, but a process group "
+                             f"of {world_size()} ranks is initialised")
+        else:
+            self.data_parallel = 1
+        if cfg.batch_size % self.data_parallel:
+            raise ValueError(
+                f"training.batch_size={cfg.batch_size} must be divisible by the "
+                f"data-parallel mesh axis ({self.data_parallel} devices); set "
+                f"parallel.data_parallel or adjust the batch size.")
+        self._host_slice = (host_batch_slice(cfg.batch_size) if self.data_parallel > 1
+                            else None)
+        self.primary = rank() == 0
+        self.trackers = (trackers or []) if self.primary else []
         os.makedirs(work_dir, exist_ok=True)
         self.loss_fn = get_loss_fn(cfg.loss)
         self.flip = RandomFlip(cfg.seed)
@@ -70,14 +111,16 @@ class Trainer:
         self.train_ds = open_split(data_dir, "train", cfg.temporal_length,
                                    transform=self.flip)
         self.val_ds = open_split(data_dir, "val", cfg.temporal_length)
-        self.csv = CSVLogger(os.path.join(
-            work_dir, f"{study_name}_trial{trial_id}_train_log.csv"))
+        csv_path = os.path.join(work_dir, f"{study_name}_trial{trial_id}_train_log.csv")
+        self.csv = CSVLogger(csv_path) if self.primary else _NullCSVLogger()
         self.state: TrainState | None = None
         # Plot steps run where JAX's do, whether or not there is anything to
-        # draw with: their metrics lack grad_norm there too.
-        self.render_plots = bool(cfg.frequency_plt) and (
+        # draw with: their metrics lack grad_norm there too.  None with more
+        # than one rank.
+        self.plot_steps = bool(cfg.frequency_plt) and self.data_parallel == 1
+        self.render_plots = self.plot_steps and (
             importlib.util.find_spec("matplotlib") is not None)
-        if cfg.frequency_plt and not self.render_plots:
+        if self.plot_steps and not self.render_plots:
             log.info("matplotlib is not installed: training without prediction plots")
 
     def _checkpoint_path(self, kind: str) -> str:
@@ -85,10 +128,19 @@ class Trainer:
                             f"{self.study_name}_trial_{self.trial_id}_{kind}.pth")
 
     def _device_batches(self, dataset, shuffle: bool, epoch: int, drop_last: bool):
+        """This rank's rows of each global batch, on its device."""
         return prefetch_to_device(
             make_batches(dataset, self.cfg.batch_size, shuffle=shuffle,
-                         seed=self.cfg.seed, epoch=epoch, drop_last=drop_last),
+                         seed=self.cfg.seed, epoch=epoch, drop_last=drop_last,
+                         sample_slice=self._host_slice),
             self.device)
+
+    def _rank0_writes(self, write: Callable[[], None]) -> None:
+        """Run ``write`` on rank 0 alone; the other ranks wait for it."""
+        if self.primary:
+            write()
+        if self.data_parallel > 1:
+            dist.barrier()
 
     def init_state(self, in_channels: int) -> TrainState:
         """A fresh model (its weights drawn from ``cfg.seed``, as the JAX
@@ -134,11 +186,18 @@ class Trainer:
             log.warning(f"Prediction plot failed at step {step}: {e}")
 
     def validate(self, state: TrainState) -> dict[str, float]:
-        """Masked validation over the val split (reference src/train.py:20-60)."""
+        """Masked validation over the val split (reference src/train.py:20-60);
+        with several ranks, each takes its rows of every padded batch and the
+        sums are added over the ranks."""
         sums: dict[str, torch.Tensor] = {}
         for batch in self._device_batches(self.val_ds, False, 0, drop_last=False):
             for k, v in eval_step(state.model, batch, self.cfg.nb_metadata_features).items():
                 sums[k] = sums[k] + v if k in sums else v
+        if self.data_parallel > 1 and sums:       # every rank sees the same batches
+            keys = sorted(sums)
+            stacked = torch.stack([sums[k] for k in keys])
+            dist.all_reduce(stacked)
+            sums = dict(zip(keys, stacked))
         totals = {k: float(v) for k, v in sums.items()}
         n = totals.pop("num_samples", 0.0)
         if n == 0:
@@ -158,7 +217,8 @@ class Trainer:
             raise ValueError(f"Train split is empty under {self.data_dir}")
         # The JAX loop draws an example batch (through the flip) to
         # initialise its state; so does this one, for the channel count.
-        example = next(make_batches(self.train_ds, cfg.batch_size, drop_last=False))
+        example = next(make_batches(self.train_ds, cfg.batch_size, drop_last=False,
+                                    sample_slice=self._host_slice))
         state = self.state = self.init_state(example.maps.shape[-1])
 
         start_epoch, best_val = 0, float("inf")
@@ -167,13 +227,14 @@ class Trainer:
             meta = restore_checkpoint(last_path, state)
             start_epoch = int(meta.get("epoch", -1)) + 1
             best_val = float(meta.get("best_val_loss", float("inf")))
-            # Flip draws of the epochs already run: one per loaded sample.
-            self.flip.skip(start_epoch * (len(self.train_ds) // cfg.batch_size)
-                           * cfg.batch_size)
+            # Flip draws of the epochs already run: one per sample this rank
+            # loaded.
+            rows = cfg.batch_size // self.data_parallel
+            self.flip.skip(start_epoch * (len(self.train_ds) // cfg.batch_size) * rows)
             log.info(f"Resumed from epoch {start_epoch} (step {state.step}, "
                      f"best_val {best_val:.4f}).")
         log.info(f"Model: {cfg.model_type}, params={param_count(state):,}, "
-                 f"device={self.device}")
+                 f"device={self.device}, data-parallel ranks={self.data_parallel}")
 
         ema = RunningLoss("ema", ema_alpha=0.98)
         sma = RunningLoss("sma", window_size=50)
@@ -194,7 +255,7 @@ class Trainer:
                 step = state.step
                 kw = dict(gradient_clipping=cfg.gradient_clipping,
                           metadata_features=cfg.nb_metadata_features)
-                if cfg.frequency_plt and step % cfg.frequency_plt == 0:
+                if self.plot_steps and step % cfg.frequency_plt == 0:
                     metrics, outputs = train_step_with_outputs(state, batch, self.loss_fn, **kw)
                     if self.render_plots:
                         self._render_plot(batch, outputs, metrics, step)
@@ -234,12 +295,12 @@ class Trainer:
             if val_loss < best_val:
                 best_val = val_loss
                 best_path = self._checkpoint_path("best")
-                save_checkpoint(best_path, state,
-                                {"epoch": epoch, "loss": best_val, **common})
+                self._rank0_writes(lambda: save_checkpoint(
+                    best_path, state, {"epoch": epoch, "loss": best_val, **common}))
                 log.info(f"New best checkpoint (val={best_val:.4f}) -> {best_path}")
             # The resume point: the full state, optimizer included.
-            save_checkpoint(last_path, state,
-                            {"epoch": epoch, "best_val_loss": best_val, **common})
+            self._rank0_writes(lambda: save_checkpoint(
+                last_path, state, {"epoch": epoch, "best_val_loss": best_val, **common}))
             if epoch_callback is not None:
                 epoch_callback(epoch, val_loss)
 

@@ -12,6 +12,16 @@ run here too, and torch optimizers skip a parameter whose ``.grad`` is
 None), the global-norm clip, the optimizer update, and the step counter.
 A deep-supervised U-Net++ returns four heads: training averages each loss
 component over them, validation and inference read the last.
+
+Data parallelism (one rank per device, ``parallel.multihost``): each rank
+steps on its rows of the global batch, BatchNorm's statistics are the global
+batch's (``models.blocks.batch_norm_train``), and after the backward the
+gradients are averaged over the ranks in a few flat buckets before the norm,
+the clip and the update, so every rank applies the same global update, as
+JAX's GSPMD step does.  The logged loss components are averaged alike.  An
+explicit all-reduce keeps the module's own state_dict keys, which a
+``DistributedDataParallel`` wrapper would prefix with ``module.``.  With one
+rank nothing is exchanged.
 """
 
 from __future__ import annotations
@@ -19,8 +29,10 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from maunet_tpu_torch.losses.combined import per_sample_losses
+from maunet_tpu_torch.parallel.multihost import world_size
 from maunet_tpu_torch.train.optimizers import clip_by_global_norm_, global_norm
 from maunet_tpu_torch.train.state import TrainState
 
@@ -100,12 +112,46 @@ def _update(state: TrainState, batch: Batch, loss_fn: LossFn, gradient_clipping:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    world = world_size()
+    if world > 1:
+        average_over_ranks_(grads, world)
+        losses = dict(zip(losses, average_over_ranks_(
+            [torch.stack([v.detach() for v in losses.values()])], world)[0]))
     norm = global_norm(grads)
     if gradient_clipping and gradient_clipping > 0:
         clip_by_global_norm_(grads, norm, gradient_clipping)
     opt.step()
     state.step += 1
     return losses, norm, outputs
+
+
+# Elements per all-reduce of the gradient average: 16 MiB of f32 (a larger
+# tensor goes alone), so the full-width U-Net's 32.6M gradients take 9.
+BUCKET_ELEMENTS = 1 << 22
+
+
+def average_over_ranks_(tensors: list[torch.Tensor], world: int) -> list[torch.Tensor]:
+    """Replace each tensor in place by its mean over the process group's
+    ``world`` ranks: the tensors are packed, dtype by dtype, into flat
+    buckets of up to :data:`BUCKET_ELEMENTS`, each summed by one all-reduce,
+    divided by ``world`` and unpacked.  Returns ``tensors``."""
+    buckets: list[list[torch.Tensor]] = []
+    size = 0
+    for t in tensors:
+        if not buckets or size + t.numel() > BUCKET_ELEMENTS or buckets[-1][0].dtype != t.dtype:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(t)
+        size += t.numel()
+    for bucket in buckets:
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat)
+        flat.div_(world)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    return tensors
 
 
 @torch.no_grad()

@@ -89,6 +89,13 @@ RESEARCH_APP_MODULES = [
 ]
 
 
+# Data parallelism: the mesh, the process group and sharded inference, likewise.
+PARALLEL_MODULES = [
+    "maunet_tpu_torch.parallel", "maunet_tpu_torch.parallel.mesh",
+    "maunet_tpu_torch.parallel.multihost", "maunet_tpu_torch.parallel.infer",
+]
+
+
 def test_port_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -96,7 +103,23 @@ def test_port_imports_without_jax_or_yaml():
     imported = set(proc.stdout.split())
     assert len(imported) >= 75
     assert not set(TRAINING_MODULES + EVALUATION_MODULES + RESEARCH_MODULES
-                   + APP_MODULES + TRAINING_FEATURE_MODULES + RESEARCH_APP_MODULES) - imported
+                   + APP_MODULES + TRAINING_FEATURE_MODULES + RESEARCH_APP_MODULES
+                   + PARALLEL_MODULES) - imported
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """Without CUDA a mesh of the visible cards, a rank's default device and
+    a sharded evaluation on the card raise; none falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without it")
+    from maunet_tpu_torch.parallel.mesh import make_mesh
+    from maunet_tpu_torch.parallel.multihost import initialize_multihost
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_multihost("localhost:1", 2, 0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_cuda_call_without_cuda_raises(tmp_path):

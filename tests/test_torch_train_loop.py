@@ -124,7 +124,7 @@ def test_train_config_defaults_equal_jax():
     """Every field has the default of its JAX counterpart; the JAX fields
     left out are the features not ported."""
     cfg, ref = TrainConfig(), Config()
-    sections = [ref.training, ref.logging, ref.dataset, ref]
+    sections = [ref.training, ref.logging, ref.dataset, ref.parallel, ref]
     left_out = {"deep_supervision", "keep_last_checkpoints"}
     for f in dataclasses.fields(cfg):
         owner = next(s for s in sections if f.name in {g.name for g in dataclasses.fields(s)})
