@@ -172,12 +172,42 @@ Phases, one output line each (or a few for the kernel table):
    requests over the two-entry mesh (padded to 8) against the unsharded
    call, within phase 5's tolerance; A, B, C and D must launch.
 
+14. the spatial axis (``parallel/spatial.py``: each image's rows sharded
+   over the ranks of a data index, halo rows exchanged around every 3x3
+   conv, resize and loss window), Gloo ranks sharing ``cuda:0`` in worker
+   processes: (a) C's row entry at the serving U-Net's four upsamples and
+   U-Net++'s four level resizes (B = 8, bf16) for every band of 2 and 4
+   ranks, each band's rows equal to the whole launch's bit for bit and held
+   against the windowed plain version, timed beside the whole launch; (b)
+   the full-width serving forward (B = 8, 256², bf16) at (data, spatial)
+   (1, 2) and (1, 4), the gathered bands within phase 5's 5% of the
+   unsharded forward, each rank launching A 4, B 1 and C's row entry 4
+   times (the whole resize none); (c) one train step at ``TrainConfig``'s
+   defaults in f32 (AdamW, l1-gradient-ssim) at (1, 2) and (2, 2) against
+   this process's step from the same state and batch: the ranks' states
+   the same bits, the loss within 1e-6 relative, the running statistics
+   and the parameters within 1e-5 of (|value| + the tensor's largest),
+   where a parameter may also differ by what AdamW's first update lr g /
+   (|g| + eps) makes of the two gradients' difference (near g = 0 it turns
+   rounding into up to 2 lr), the gradients within JAX's 2e-4 * max(1,
+   max|g|), E, F's two launches and dW once a rank; each rank's step ms and
+   peak of allocated memory (``utils.profiling.device_memory_stats``)
+   beside this process's; (d) one ``Trainer`` epoch at (1, 2) at
+   ``TrainConfig``'s defaults (bf16) on phase 6's data: the same val-loss
+   bits on both ranks, within 1e-2
+   relative of this process's epoch (three bf16 AdamW steps from gradients
+   that any other order of their sums moves by up to 2% of a tensor's
+   largest, as a data-parallel split does: ``profile_port.py
+   --grad-spread``), and rank 0's checkpoint restored reproducing it.
+
 The line before the last is the kernel summary JSON: per kernel the launch
 count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
-evaluation; G: the pair configuration), and over that path's shapes in phase
+evaluation; G: the pair configuration; C's row entry, ``resize_rows``: one
+rank's serving forward at (1, 2)), and over that path's shapes in phase
 3 (B = 8 at 256² for A and C, B = 8 for B, B = 16 for E, F's two launches
 (the ``lstm_backward`` row times both), dW and D, the eleven
-eligible blocks at B = 8 for G; one launch per distinct shape) the largest
+eligible blocks at B = 8 for G; one launch per distinct shape; for C's row
+entry, phase 14's band 0 of 2 at the four serving upsamples) the largest
 error against the plain version and the summed kernel, plain, bound and
 library times.  The other shapes of phase 3 are pass/fail checks printed on
 their own lines.  The last line
@@ -219,6 +249,10 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
   pair configuration vs two launches per block: as the serving path, 5%;
   train step with train_fused_conv vs plain: as the kernels-vs-plain step,
     loss within 1% and gradient global norm within 5%;
+  resize row window (bf16): against the whole launch, the same bits; against
+    its windowed plain version, as the resize, 1e-2 + 1e-2 |plain|;
+  spatial serving forward vs unsharded: as the serving path, 5%;
+  spatial train step vs one process (f32, TF32 off): see phase 14 (c);
   train step with remat vs plain: the same loss bits and running
     statistics; each gradient within 1e-2 of its tensor's largest magnitude
     (cuDNN's dgrad and wgrad may sum in another order when run again).
@@ -1003,7 +1037,8 @@ def wrappers() -> dict:
     return {fn.__name__: fn for fn in (
         packed_vgg.conv3x3_fused, lstm.lstm_last_hidden, resize_pack.resize_pack,
         lstm.lstm_forward_stash, lstm.lstm_gate_terms, lstm.lstm_backward, lstm.lstm_dw,
-        masked_stats.masked_class_sums, packed_vgg.conv3x3_pair_fused)}
+        masked_stats.masked_class_sums, packed_vgg.conv3x3_pair_fused,
+        resize_pack.resize_rows)}
 
 
 def reset_launches() -> dict:
@@ -2026,20 +2061,25 @@ DP_TRAINING = ("lstm_forward_stash", "lstm_gate_terms", "lstm_backward", "lstm_d
                "resize_pack")
 
 
-def run_ranks(tmpdir: str, name: str, tasks: list[dict], dev) -> str:
-    """The worker as ``DP_RANKS`` Gloo ranks sharing ``dev``; every rank
-    must exit 0 within 600 s.  Returns the directory they wrote to."""
+def run_ranks(tmpdir: str, name: str, tasks: list[dict], dev, world: int = DP_RANKS,
+              cudnn: bool = True) -> str:
+    """The worker as ``world`` Gloo ranks sharing ``dev`` (with ``cudnn``
+    off, on PyTorch's own convolutions); every rank must exit 0 within 600
+    s.  This process's cached device memory is released first: the ranks
+    need the card's memory.  Returns the directory they wrote to."""
+    torch.cuda.empty_cache()
     out = os.path.join(tmpdir, f"dp_{name}")
     os.makedirs(out)
-    spec = {"store": f"file://{tmpdir}/dp_store_{name}", "world": DP_RANKS,
-            "backend": "gloo", "device": str(dev), "threads": 2, "out": out, "tasks": tasks}
+    spec = {"store": f"file://{tmpdir}/dp_store_{name}", "world": world,
+            "backend": "gloo", "device": str(dev), "threads": 2, "out": out, "tasks": tasks,
+            "cudnn": cudnn}
     spec_path = os.path.join(tmpdir, f"dp_{name}.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
-    logs = [open(os.path.join(out, f"log_{r}.txt"), "w+") for r in range(DP_RANKS)]
+    logs = [open(os.path.join(out, f"log_{r}.txt"), "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, WORKER, spec_path, str(r)],
                               stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(DP_RANKS)]
+             for r in range(world)]
     deadline = time.monotonic() + 600
     try:
         while any(p.poll() is None for p in procs):
@@ -2313,6 +2353,317 @@ def parallel_path(dev, tmpdir: str, data: str, checkpoint: str, smi: str) -> Non
     print(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 14, the spatial axis.  (a) C's row window at the serving U-Net's
+# four upsamples (B = 8, bf16, 256²) and U-Net++'s four level resizes (base
+# 32), as (input shape, on the serving path), for every band of each axis.
+SPATIAL_RESIZES = (
+    ((8, 16, 16, 1024), True), ((8, 32, 32, 512), True), ((8, 64, 64, 256), True),
+    ((8, 128, 128, 128), True),
+    ((8, 16, 16, 512), False), ((8, 32, 32, 256), False), ((8, 64, 64, 128), False),
+    ((8, 128, 128, 64), False))
+SPATIAL_AXES = (2, 4)
+# (data, spatial) layouts of (b) the serving forward and (c) the train step.
+SPATIAL_SERVING = ((1, 2), (1, 4))
+SPATIAL_TRAINING = ((1, 2), (2, 2))
+# A rank's launches in one serving forward: A's four level-0 convs, B, and
+# the four upsamples through C's row entry.
+SPATIAL_FORWARD_LAUNCHES = {"conv3x3_fused": 4, "lstm_last_hidden": 1, "resize_rows": 4,
+                            "resize_pack": 0}
+# A rank's launches in one train step: E, F's two and dW once each.
+SPATIAL_STEP_ONCE = ("lstm_forward_stash", "lstm_gate_terms", "lstm_backward", "lstm_dw")
+SPATIAL_TIMED = 2
+# The serving U-Net as phase 5 saves it (write_checkpoint), for the workers.
+SERVING_MODEL = {"model_type": "unet", "base_filters": 64, "temporal_dim": 64, "meta_dim": 64,
+                 "lstm_dim": 96, "in_channels": 23, "meta_features": 8,
+                 "lstm_mask_mode": "batch_max", "compute_dtype": "bfloat16"}
+
+
+def check_windows(table: KernelTable, dev) -> dict:
+    """Phase 14 (a): every band's window of C against the whole launch, bit
+    for bit, and against its plain version (the table's row
+    ``resize_rows``, whose summary reads band 0 of 2 at the serving
+    shapes: the windows one rank of the (1, 2) forward launches); each
+    shape's whole launch timed beside its windows."""
+    from maunet_tpu_torch.ops.kernels import resize_pack
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    times = {}
+    for shape, serving in SPATIAL_RESIZES:
+        b, n, w, c = shape
+        out_hw = (2 * n, 2 * w)
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        whole = resize_pack.resize_pack(x, out_hw)
+        whole_ms = cuda_ms(lambda: resize_pack.resize_pack(x, out_hw))
+        for sp in SPATIAL_AXES:
+            band, ms = n // sp, []
+            for s in range(sp):
+                lo, hi = max(s * band - 1, 0), min((s + 1) * band + 1, n)
+                xs = x[:, lo:hi].contiguous()
+                args = ((2 * band, 2 * w), n, 2 * n, lo, s * 2 * band)
+                got = resize_pack.resize_rows(xs, *args)
+                if not torch.equal(got, whole[:, s * 2 * band:(s + 1) * 2 * band]):
+                    raise AssertionError(f"resize_rows {shape} band {s} of {sp}: not the "
+                                         f"whole launch's rows bit for bit")
+                ms.append(table.check(
+                    "resize_rows", f"{shape}->{out_hw} band {s}/{sp} rows [{lo}, {hi})",
+                    lambda: resize_pack.resize_rows(xs, *args),
+                    lambda: resize_pack.resize_rows_plain(xs, *args), 1e-2, 1e-2,
+                    serving and sp == 2 and s == 0,
+                    ((xs.numel() + got.numel()) * 2, 8 * got.numel(), "f32")))
+            times[(shape, sp)] = (whole_ms, ms)
+            print(f"spatial (a) {shape}->{out_hw} over {sp} bands: every band's rows equal "
+                  f"the whole launch's bit for bit; whole {whole_ms:.4f} ms, bands "
+                  f"{[round(t, 4) for t in ms]} ms (sum {sum(ms):.4f}; CUDA events)")
+    return times
+
+
+def adamw_first_update(g: torch.Tensor, lr: float, eps: float = 1e-8) -> torch.Tensor:
+    """AdamW's first update of a parameter with gradient ``g`` (bias
+    corrected: lr g / (|g| + eps)), in f64."""
+    g = g.double()
+    return lr * g / (g.abs() + eps)
+
+
+def spatial_path(dev, tmpdir: str, data: str, checkpoint: str, smi: str,
+                 table: KernelTable) -> dict[str, int]:
+    """Phase 14: the spatial axis.  (a) C's windows; (b) the serving forward
+    at (1, 2) and (1, 4); (c) the train step at (1, 2) and (2, 2); (d) a
+    ``Trainer`` epoch at (1, 2).  Returns rank 0's launches in one serving
+    forward at (1, 2)."""
+    import dataclasses
+
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.losses import get_loss_fn
+    from maunet_tpu_torch.models.factory import UrbanPredictor
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.train.loop import Trainer
+    from maunet_tpu_torch.train.optimizers import make_optimizer
+    from maunet_tpu_torch.train.state import TrainState
+    from maunet_tpu_torch.train.steps import model_outputs, train_step
+    from maunet_tpu_torch.utils.profiling import device_memory_stats
+
+    t_phase = time.perf_counter()
+    check_windows(table, dev)
+    failures: list[str] = []   # every check of (b)-(d) runs; the phase fails at its end
+
+    def gib(n):
+        return "not measured" if n is None else round(n / 2.0 ** 30, 3)
+
+    # (b) The serving forward, unsharded here.
+    serve_state = os.path.join(tmpdir, "sp_serving.pt")
+    torch.save(torch.load(checkpoint, weights_only=False)["model_state_dict"], serve_state)
+    serve_host = next(make_batches(NpzDataset(os.path.join(data, "test"), T_SERIES), 8))
+    serve_batch = os.path.join(tmpdir, "sp_serving.npz")
+    np.savez(serve_batch, **serve_host.as_dict())
+    model = UrbanPredictor(**{**SERVING_MODEL, "compute_dtype": torch.bfloat16})
+    model.load_state_dict(torch.load(serve_state, weights_only=True), strict=True)
+    model = model.to(dev).eval()
+    batch = to_device(host_tensors(serve_host, pin=dev.type == "cuda"), dev)
+    with torch.no_grad():
+        want_out = model_outputs(model, batch).float().cpu()
+        single_ms = []
+        for _ in range(SPATIAL_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model_outputs(model, batch)
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, batch
+
+    # (c) The train step, unsharded here: TrainConfig's defaults in f32.
+    cfg = TrainConfig()
+    kwargs = dict(model_type=cfg.model_type, out_channels=len(cfg.target_channels),
+                  temporal_dim=cfg.temporal_dim, meta_dim=cfg.meta_dim,
+                  lstm_dim=cfg.lstm_hidden, base_filters=cfg.base_filters, in_channels=23,
+                  meta_features=cfg.nb_metadata_features,
+                  temporal_embeddings=cfg.temporal_embeddings,
+                  metadata_embeddings=cfg.metadata_embeddings, compute_dtype="float32")
+    model = UrbanPredictor(**{**kwargs, "compute_dtype": torch.float32},
+                           generator=torch.Generator().manual_seed(cfg.seed))
+    step_state = os.path.join(tmpdir, "sp_step_state.pt")
+    torch.save(model.state_dict(), step_state)
+    train_host = next(make_batches(NpzDataset(os.path.join(data, "train"), T_SERIES),
+                                   cfg.batch_size))
+    step_batch = os.path.join(tmpdir, "sp_step_batch.npz")
+    np.savez(step_batch, **train_host.as_dict())
+    model = model.to(dev)
+    optimizer = [cfg.optimizer, cfg.learning_rate, cfg.weight_decay, cfg.momentum]
+    state = TrainState(model, make_optimizer(model.parameters(), *optimizer), 0)
+    batch = to_device(host_tensors(train_host, pin=dev.type == "cuda"), dev)
+    loss_fn = get_loss_fn(cfg.loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    single = {k: float(v) for k, v in train_step(state, batch, loss_fn).items()}
+    torch.cuda.synchronize()
+    single_peak = next((m["peak_bytes_in_use"] for m in device_memory_stats()
+                        if m["device"] == str(dev)), None)
+    # Copies: the timed steps below go on updating the model in place.
+    want_sd = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    want_grads = {n: p.grad.detach().to("cpu", copy=True)
+                  for n, p in model.named_parameters()}
+    single_step_ms = []
+    for _ in range(SPATIAL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, loss_fn)
+        torch.cuda.synchronize()
+        single_step_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, state, batch
+
+    # (d) One Trainer epoch, unsharded here, at TrainConfig's defaults (its
+    # validation runs A, which takes bf16 only).  Three AdamW steps in bf16
+    # from gradients that any other order of the sums moves by up to 2% of a
+    # tensor's largest (profile_port.py --grad-spread): the val losses are
+    # held as phase 6 holds a bf16 step's loss, within 1%.
+    epoch_cfg = cfg
+    t0 = time.perf_counter()
+    single_val = Trainer(epoch_cfg, data, work_dir=os.path.join(tmpdir, "sp_single"),
+                         study_name="sp", device=dev).train(epochs=1).best_val_loss
+    single_epoch_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    def forward_task(name, sp):
+        return {"kind": "forward", "name": name, "spatial": sp, "state": serve_state,
+                "batch": serve_batch, "model": SERVING_MODEL, "timed": SPATIAL_TIMED}
+
+    def step_task(name, sp):
+        return {"kind": "step", "name": name, "spatial": sp, "state": step_state,
+                "batch": step_batch, "model": kwargs, "optimizer": optimizer,
+                "loss": cfg.loss, "timed": SPATIAL_TIMED}
+
+    plans = {2: [forward_task("fwd_1x2", 2), step_task("step_1x2", 2),
+                 {"kind": "epoch", "name": "epoch_1x2", "spatial": 2, "data": data,
+                  "work": os.path.join(tmpdir, "sp_work"),
+                  "cfg": dataclasses.asdict(dataclasses.replace(epoch_cfg,
+                                                                spatial_parallel=2))}],
+             4: [forward_task("fwd_1x4", 4), step_task("step_2x2", 2)]}
+    outs, walls = {}, {}
+    for world, tasks in plans.items():
+        t0 = time.perf_counter()
+        outs[world] = run_ranks(tmpdir, f"spatial{world}", tasks, dev, world=world)
+        walls[world] = time.perf_counter() - t0
+
+    def load(world, name):
+        return [torch.load(os.path.join(outs[world], f"{name}_rank{r}.pt"), weights_only=True)
+                for r in range(world)]
+
+    # (b) The gathered bands against the unsharded forward.
+    spatial_launches = None
+    for (dp, sp), world in zip(SPATIAL_SERVING, (2, 4)):
+        ranks = load(world, f"fwd_{dp}x{sp}")
+        got = ranks[0]["out"].float()    # every band, gathered (spatial.gather_rows)
+        if any(not torch.equal(r["out"], ranks[0]["out"]) for r in ranks[1:]):
+            failures.append(f"spatial (b) ({dp}, {sp}): the ranks gathered other outputs")
+        diff = float((got - want_out).abs().max())
+        scale = float(want_out.abs().max())
+        bad = [r["launches"] for r in ranks
+               if any(r["launches"][k] != n for k, n in SPATIAL_FORWARD_LAUNCHES.items())]
+        print(f"spatial (b) serving forward ({dp}, {sp}), full width, bf16, B = 8, 256², "
+              f"T = {T_SERIES}: gathered bands against the unsharded forward "
+              f"max_abs_diff={diff:.4e} (output max |x| {scale:.4f}, tol "
+              f"{0.05 * max(scale, 1.0):.4f}); forward "
+              f"{[round(statistics.median(r['timed_ms']), 2) for r in ranks]} ms a rank "
+              f"(the ranks share the card) against {statistics.median(single_ms):.2f} ms "
+              f"unsharded (host clock, median of {SPATIAL_TIMED} synchronised forwards; "
+              f"{smi}); rank 0's launches={ranks[0]['launches']}")
+        if not torch.isfinite(got).all() or got.shape != want_out.shape:
+            failures.append(f"spatial (b) ({dp}, {sp}): output {tuple(got.shape)} "
+                                 f"not finite or not {tuple(want_out.shape)}")
+        if diff > 0.05 * max(scale, 1.0):
+            failures.append(f"spatial (b) ({dp}, {sp}): the bands disagree")
+        if bad:
+            failures.append(f"spatial (b) ({dp}, {sp}): launches {bad[0]}, not "
+                                 f"{SPATIAL_FORWARD_LAUNCHES}")
+        if (dp, sp) == SPATIAL_SERVING[0]:
+            spatial_launches = ranks[0]["launches"]
+
+    # (c) The train step against the unsharded one.
+    lr = cfg.learning_rate
+    for (dp, sp), world in zip(SPATIAL_TRAINING, (2, 4)):
+        ranks = load(world, f"step_{dp}x{sp}")
+        worst = {"param": 0.0, "stat": 0.0, "grad": 0.0, "adam": 0, "grad_at": ""}
+        for k, v in want_sd.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            a = ranks[0]["state_dict"][k]
+            if any(not torch.equal(r["state_dict"][k], a) for r in ranks[1:]):
+                failures.append(f"spatial (c) ({dp}, {sp}): the ranks' {k} differ")
+            bound = 1e-5 * (v.abs() + v.abs().max())
+            excess = float(((a - v).abs() / (v.abs() + v.abs().max())).max())
+            if k.endswith(("running_mean", "running_var")):
+                worst["stat"] = max(worst["stat"], excess)
+                if not bool(((a - v).abs() <= bound).all()):
+                    failures.append(f"spatial (c) ({dp}, {sp}): {k} beyond 1e-5")
+                continue
+            g1, g2 = want_grads[k], ranks[0]["grads"][k]
+            gscale = g1.abs().max()
+            rel = float(((g2 - g1).abs() / (g1.abs() + gscale).clamp_min(1e-30)).max())
+            if rel > worst["grad"]:
+                worst["grad"], worst["grad_at"] = rel, f"{k}, largest |g| {float(gscale):.3e}"
+            # JAX's tolerance for sharded against single-device gradients.
+            if float((g2 - g1).abs().max()) > 2e-4 * max(1.0, float(gscale)):
+                failures.append(
+                    f"spatial (c) ({dp}, {sp}): the gradient of {k} differs by "
+                    f"{float((g2 - g1).abs().max()):.3e} (largest |g| {float(gscale):.3e}), "
+                    f"beyond 2e-4 * max(1, max|g|)")
+            # AdamW's first update is lr g / (|g| + eps): a gradient that the
+            # two runs round apart near 0 moves by up to 2 lr, by rounding.
+            amplified = (adamw_first_update(g2, lr) - adamw_first_update(g1, lr)).abs()
+            diff = (a - v).abs().double()
+            worst["param"] = max(worst["param"], excess)
+            worst["adam"] += int(((diff > bound.double()) & (diff <= bound.double() + amplified
+                                                           + 1e-12)).sum())
+            if not bool((diff <= bound.double() + amplified + 1e-12).all()):
+                failures.append(f"spatial (c) ({dp}, {sp}): {k} differs beyond 1e-5 "
+                                     f"and AdamW's amplification of the gradients' rounding")
+        loss_rel = max(abs(r["metrics"]["total"] - single["total"]) / abs(single["total"])
+                       for r in ranks)
+        bad = [r["launches"] for r in ranks
+               if any(r["launches"][k] != 1 for k in SPATIAL_STEP_ONCE)
+               or r["launches"]["resize_rows"] == 0 or r["launches"]["resize_pack"]]
+        print(f"spatial (c) train step ({dp}, {sp}), TrainConfig's defaults in f32 (B = "
+              f"{cfg.batch_size}, 256², {cfg.optimizer}, {cfg.loss}), TF32 off, against one "
+              f"process: loss rel diff {loss_rel:.3e} (tol 1e-6); running statistics "
+              f"{worst['stat']:.3e} and parameters {worst['param']:.3e} of (|value| + the "
+              f"tensor's largest) (tol 1e-5; {worst['adam']} parameter elements beyond it "
+              f"within AdamW's amplification of their gradients' rounding); gradients "
+              f"{worst['grad']:.3e} of (|g| + max|g|) at {worst['grad_at']} (tol 2e-4 * "
+              f"max(1, max|g|)); step "
+              f"{[round(statistics.median(r['timed_ms']), 1) for r in ranks]} ms and peak "
+              f"{[gib(r['peak_bytes']) for r in ranks]} GiB a rank (the ranks "
+              f"share the card) against {statistics.median(single_step_ms):.1f} ms and "
+              f"{gib(single_peak)} GiB in one process (host clock, median of "
+              f"{SPATIAL_TIMED} synchronised steps after the compared one; peak of "
+              f"max_memory_allocated through utils.profiling; {smi}); rank 0's "
+              f"launches={ranks[0]['launches']}")
+        if loss_rel > 1e-6:
+            failures.append(f"spatial (c) ({dp}, {sp}): the loss differs beyond 1e-6")
+        if bad:
+            failures.append(f"spatial (c) ({dp}, {sp}): launches {bad[0]}")
+
+    # (d) The Trainer epoch.
+    epochs = [json.load(open(os.path.join(outs[2], f"epoch_1x2_rank{r}.json")))
+              for r in range(2)]
+    vals = [e["best_val_loss"] for e in epochs]
+    rel = abs(vals[0] - single_val) / abs(single_val)
+    print(f"spatial (d) Trainer epoch (1, 2), TrainConfig's defaults on phase 6's "
+          f"data: val loss {vals!r} on the two ranks, {single_val!r} in one process (rel "
+          f"diff {rel:.3e}, tol 1e-2); restored {epochs[0]['val_restored']!r}; epoch "
+          f"{[round(e['seconds'], 1) for e in epochs]} s a rank against "
+          f"{single_epoch_s:.1f} s in one process (host clock); clusters of 2 and 4 ranks "
+          f"{walls[2]:.1f} and {walls[4]:.1f} s with their processes' start")
+    if vals[0] != vals[1] or not math.isfinite(vals[0]) or rel > 1e-2:
+        failures.append("spatial (d): the val losses differ")
+    if abs(epochs[0]["val_restored"] - vals[0]) > 1e-6 * abs(vals[0]):
+        failures.append("spatial (d): the restored checkpoint's val loss differs")
+    print(f"spatial phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"spatial phase, {len(failures)} failed check(s): "
+                             + "; ".join(failures[:10]))
+    return spatial_launches
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -2321,6 +2672,9 @@ KERNEL_INFO = {
     "lstm_last_hidden": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:402", "serving"),
     "resize_pack": ("maunet_tpu_torch/csrc/resize_pack.cu",
                     "maunet_tpu/ops/pallas/resize_pack.py:216", "serving"),
+    # C's row entry: each rank's rows of the global resize (the spatial axis)
+    "resize_rows": ("maunet_tpu_torch/csrc/resize_pack.cu",
+                    "maunet_tpu/ops/pallas/resize_pack.py:216", "spatial"),
     "lstm_forward_stash": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:290", "training"),
     # F's first launch: the gate recompute of the TPU backward (lstm.py:247-248)
     "lstm_gate_terms": (LSTM_CU, "maunet_tpu/ops/pallas/lstm.py:387", "training"),
@@ -2373,6 +2727,8 @@ def main() -> int:
         science_path(dev, tmpdir)
         research_app_path(dev, tmpdir, data, checkpoints, smi[0])
         parallel_path(dev, tmpdir, data, checkpoints["unet"], smi[0])
+        launches["spatial"] = spatial_path(dev, tmpdir, data, checkpoints["unet"], smi[0],
+                                           table)
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[path][name], **table.summary(name)}

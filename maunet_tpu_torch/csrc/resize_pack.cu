@@ -46,9 +46,21 @@
 // Rounding: the four taps are summed in f32 and rounded once to the input
 // dtype.  The JAX kernel rounds its H-pass to the input dtype before the
 // W-pass, so in bf16 the two differ by about one bf16 ulp.
+//
+// The row window (maunet_resize_align_corners_rows, the spatial mesh axis:
+// parallel/spatial.py).  A rank that holds a band of an image's rows computes
+// output rows [out_row0, out_row0 + oh) of the global h_total -> oh_total
+// resize from the source rows [src_row0, src_row0 + h) it holds (its own band
+// and a halo row of each neighbour).  The row walk runs in global
+// coordinates, the same integer arithmetic and the same f32 expressions as
+// the whole resize, and only the loads subtract src_row0: so the window's
+// rows are the whole resize's rows bit for bit.  The whole resize is the
+// window (0, 0, h, oh), through the same kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -92,11 +104,13 @@ __device__ __forceinline__ void w_row(const T* col0, const T* col1, size_t offse
   for (int e = 0; e < V; ++e) out[e] = (1.f - fx) * to_f32(a.v[e]) + fx * to_f32(b.v[e]);
 }
 
-// V channels per thread (C % V == 0), `rows` output rows per thread.
+// V channels per thread (C % V == 0), `rows` output rows per thread.  `x`
+// holds source rows [src_row0, src_row0 + h) and `y` output rows
+// [out_row0, out_row0 + oh) of an h_total -> oh_total resize.
 template <typename T, int V>
 __global__ void __launch_bounds__(256) resize_align_corners_kernel(
     const T* __restrict__ x, T* __restrict__ y, int B, int h, int w, int C, int oh,
-    int ow, int rows) {
+    int ow, int rows, int h_total, int oh_total, int src_row0, int out_row0) {
   using Vt = Vec<T, V>;
   const unsigned groups = static_cast<unsigned>(C / V);
   const unsigned strips = static_cast<unsigned>((oh + rows - 1) / rows);
@@ -120,25 +134,26 @@ __global__ void __launch_bounds__(256) resize_align_corners_kernel(
   const size_t dst_row = static_cast<size_t>(ow) * C;
   T* dst = y + ((static_cast<size_t>(b) * oh + oy0) * ow + ox) * C + cg * V;
 
-  // Row taps of oy: lo = floor(oy (h - 1) / (oh - 1)), rem the remainder;
-  // oh == 1 or h == 1 keep lo = rem = 0.
-  const unsigned den = oh > 1 ? static_cast<unsigned>(oh - 1) : 1u;
-  const unsigned step = (oh > 1 && h > 1) ? static_cast<unsigned>(h - 1) : 0u;
-  const unsigned num = static_cast<unsigned>(oy0) * step;
+  // Row taps of the global output row o = out_row0 + oy: lo = floor(o
+  // (h_total - 1) / (oh_total - 1)), rem the remainder; oh_total == 1 or
+  // h_total == 1 keep lo = rem = 0.  lo and hi are global source rows.
+  const unsigned den = oh_total > 1 ? static_cast<unsigned>(oh_total - 1) : 1u;
+  const unsigned step = (oh_total > 1 && h_total > 1) ? static_cast<unsigned>(h_total - 1) : 0u;
+  const unsigned num = static_cast<unsigned>(out_row0 + oy0) * step;
   int lo = static_cast<int>(num / den);
   unsigned rem = num - static_cast<unsigned>(lo) * den;
 
   float top[V], bot[V];  // W-interpolated source rows top_row and bot_row
   int top_row = -1, bot_row = -1;
   for (int oy = oy0; oy < oy_end; ++oy) {
-    const int hi = min(lo + 1, h - 1);
+    const int hi = min(lo + 1, h_total - 1);
     const float fy = static_cast<float>(rem) / static_cast<float>(den);
     if (lo != top_row) {
       if (lo == bot_row) {
 #pragma unroll
         for (int e = 0; e < V; ++e) top[e] = bot[e];
       } else {
-        w_row<T, V>(col0, col1, lo * src_row, fx, top);
+        w_row<T, V>(col0, col1, (lo - src_row0) * src_row, fx, top);
       }
       top_row = lo;
     }
@@ -147,7 +162,7 @@ __global__ void __launch_bounds__(256) resize_align_corners_kernel(
 #pragma unroll
         for (int e = 0; e < V; ++e) bot[e] = top[e];
       } else {
-        w_row<T, V>(col0, col1, hi * src_row, fx, bot);
+        w_row<T, V>(col0, col1, (hi - src_row0) * src_row, fx, bot);
       }
       bot_row = hi;
     }
@@ -164,18 +179,57 @@ __global__ void __launch_bounds__(256) resize_align_corners_kernel(
   }
 }
 
+// The geometry of one launch: a window of h source rows from src_row0 and oh
+// output rows from out_row0 of an h_total -> oh_total resize.
+struct Rows {
+  int h, oh, h_total, oh_total, src_row0, out_row0;
+};
+
 template <typename T, int V>
-cudaError_t launch(const void* x, void* y, int B, int h, int w, int C, int oh,
-                   int ow, int rows, cudaStream_t stream) {
+cudaError_t launch(const void* x, void* y, int B, Rows r, int w, int C, int ow,
+                   int rows, cudaStream_t stream) {
   if (rows < 1) return cudaErrorInvalidValue;
-  if (static_cast<long long>(B) * oh * ow * (C / V) >= (1LL << 31)) return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(B) * ((oh + rows - 1) / rows) * ow * (C / V);
+  if (static_cast<long long>(B) * r.oh * ow * (C / V) >= (1LL << 31)) return cudaErrorInvalidValue;
+  const long long total = static_cast<long long>(B) * ((r.oh + rows - 1) / rows) * ow * (C / V);
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   resize_align_corners_kernel<T, V>
       <<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<T*>(y), B, h, w, C, oh, ow, rows);
+          static_cast<const T*>(x), static_cast<T*>(y), B, r.h, w, C, r.oh, ow, rows,
+          r.h_total, r.oh_total, r.src_row0, r.out_row0);
   return cudaGetLastError();
+}
+
+// Global source row of output row o's lower tap.
+long long tap(long long o, const Rows& r) {
+  return r.oh_total > 1 ? o * (r.h_total - 1) / (r.oh_total - 1) : 0;
+}
+
+int dispatch(const void* x, void* y, int dtype, int B, Rows r, int w, int C, int ow,
+             int rows, void* stream) {
+  if (r.h_total >= 65536 || w >= 65536 || r.oh_total >= 65536 || ow >= 65536)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The window must lie in the image and hold every row its outputs read:
+  // the lower tap of the first and min(lower + 1, h_total - 1) of the last.
+  if (r.h < 1 || r.oh < 1 || r.src_row0 < 0 || r.out_row0 < 0 ||
+      r.src_row0 + r.h > r.h_total || r.out_row0 + r.oh > r.oh_total ||
+      tap(r.out_row0, r) < r.src_row0 ||
+      std::min(tap(r.out_row0 + r.oh - 1, r) + 1, static_cast<long long>(r.h_total - 1)) >=
+          r.src_row0 + r.h)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte accesses need 16-byte aligned base pointers (a view may not be).
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = (aligned && C % 4 == 0) ? launch<float, 4>(x, y, B, r, w, C, ow, rows, s)
+                                  : launch<float, 1>(x, y, B, r, w, C, ow, rows, s);
+  else if (dtype == 1)
+    err = (aligned && C % 8 == 0)
+              ? launch<__nv_bfloat16, 8>(x, y, B, r, w, C, ow, rows, s)
+              : launch<__nv_bfloat16, 1>(x, y, B, r, w, C, ow, rows, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -185,19 +239,18 @@ cudaError_t launch(const void* x, void* y, int B, int h, int w, int C, int oh,
 extern "C" int maunet_resize_align_corners(const void* x, void* y, int dtype,
                                            int B, int h, int w, int C, int oh,
                                            int ow, int rows, void* stream) {
-  if (h >= 65536 || w >= 65536 || oh >= 65536 || ow >= 65536)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte accesses need 16-byte aligned base pointers (a view may not be).
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = (aligned && C % 4 == 0) ? launch<float, 4>(x, y, B, h, w, C, oh, ow, rows, s)
-                                  : launch<float, 1>(x, y, B, h, w, C, oh, ow, rows, s);
-  else if (dtype == 1)
-    err = (aligned && C % 8 == 0)
-              ? launch<__nv_bfloat16, 8>(x, y, B, h, w, C, oh, ow, rows, s)
-              : launch<__nv_bfloat16, 1>(x, y, B, h, w, C, oh, ow, rows, s);
-  return static_cast<int>(err);
+  return dispatch(x, y, dtype, B, Rows{h, oh, h, oh, 0, 0}, w, C, ow, rows, stream);
+}
+
+// The row window: `x` is (B, h, w, C), global source rows [src_row0,
+// src_row0 + h) of an h_total-row image; `y` is (B, oh, ow, C), output rows
+// [out_row0, out_row0 + oh) of its resize to oh_total rows.  The window
+// must hold every source row those outputs read.
+extern "C" int maunet_resize_align_corners_rows(const void* x, void* y, int dtype,
+                                                int B, int h, int w, int C, int oh,
+                                                int ow, int rows, int h_total,
+                                                int oh_total, int src_row0,
+                                                int out_row0, void* stream) {
+  return dispatch(x, y, dtype, B, Rows{h, oh, h_total, oh_total, src_row0, out_row0}, w,
+                  C, ow, rows, stream);
 }

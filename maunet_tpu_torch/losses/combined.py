@@ -4,6 +4,11 @@ Port of ``maunet_tpu/losses/combined.py`` (reference
 src/utils/losses.py:27-115), including the per-channel rescaling before SSIM
 (NDVI [-1, 1] -> [0, 1], LST clamped to [0, 1]).  NHWC: channel 0 is NDVI,
 channel 1 is LST.
+
+Under a spatial context (``parallel/spatial.py``) every training loss is this
+rank's share of the global one, constant terms included
+(``spatial.share``), so that the shares of the spatial group add up to it;
+:func:`per_sample_losses` adds the shares up over the group itself.
 """
 
 from __future__ import annotations
@@ -12,8 +17,10 @@ from typing import Callable
 
 import torch
 
-from maunet_tpu_torch.losses.basic import gradient_loss, jax_abs, l1_loss, mse_loss
+from maunet_tpu_torch.losses.basic import (gradient_loss, gradient_terms, jax_abs, l1_loss,
+                                           mean, mse_loss)
 from maunet_tpu_torch.losses.ssim import ssim
+from maunet_tpu_torch.parallel import spatial
 
 LossDict = dict[str, torch.Tensor]
 
@@ -44,7 +51,7 @@ def compute_loss_l1_grad_ssim(outputs: torch.Tensor, targets: torch.Tensor,
     grad = gradient_loss(outputs, targets)
     ssim_val = ssim(_rescale_for_ssim(outputs.float()),
                     _rescale_for_ssim(targets.float()), data_range=1.0).mean()
-    ssim_l = 1.0 - ssim_val
+    ssim_l = spatial.share(1.0) - ssim_val
     total = pixel + lambda_grad * grad + lambda_ssim * ssim_l
     return {"total": total, "pixel": pixel, "gradient": grad, "ssim": ssim_l}
 
@@ -63,15 +70,20 @@ def per_sample_losses(outputs: torch.Tensor, targets: torch.Tensor,
                       lambda_grad: float = 0.1,
                       lambda_ssim: float = 0.5) -> LossDict:
     """All loss components as per-sample (B,) vectors, for the masked
-    validation step that excludes padded tail samples."""
+    validation step that excludes padded tail samples.  Under a spatial
+    context each rank's shares are summed over the spatial group, so every
+    rank of it gets the whole images' values (without a gradient)."""
     o, t = outputs.float(), targets.float()
-    red = lambda v: v.mean(dim=(1, 2, 3))
+    red = lambda v: mean(v, dim=(1, 2, 3))
     mse = red((o - t) ** 2)
     pixel = red(jax_abs(o - t))
-    dy = jax_abs(jax_abs(o[:, 1:] - o[:, :-1]) - jax_abs(t[:, 1:] - t[:, :-1]))
-    dx = jax_abs(jax_abs(o[:, :, 1:] - o[:, :, :-1]) - jax_abs(t[:, :, 1:] - t[:, :, :-1]))
-    grad = red(dy) + red(dx)
-    ssim_l = 1.0 - ssim(_rescale_for_ssim(o), _rescale_for_ssim(t), data_range=1.0)
+    dy, dx, dy_rows = gradient_terms(o, t)
+    grad = mean(dy, dim=(1, 2, 3), rows=dy_rows) + red(dx)
+    ssim_v = ssim(_rescale_for_ssim(o), _rescale_for_ssim(t), data_range=1.0)
+    if spatial.current() is not None:
+        mse, pixel, grad, ssim_v = spatial.sum_over_bands(
+            torch.stack([mse, pixel, grad, ssim_v]))
+    ssim_l = 1.0 - ssim_v
     return {
         "mse": mse,
         "pixel": pixel,

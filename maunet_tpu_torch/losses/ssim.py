@@ -11,6 +11,11 @@ default (``torch.backends.cuda.matmul.allow_tf32`` is False), while an f32
 ``conv2d`` goes through cuDNN in TF32 by default, and on its backward too,
 outside any local flag.  The E[x^2] - mu^2 moments cancel, and reduced
 precision there drove SSIM to about -495 on the TPU (ssim.py:51-56).
+
+Under a spatial context (``parallel/spatial.py``) the images are this rank's
+band of rows: the pooling factor reads the global height, a band takes the
+window's ten rows from the band below (the last band's window ends at H -
+10), and each image's score is the band's share of it (``basic.mean``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from maunet_tpu_torch.losses.basic import mean, with_rows_below
+from maunet_tpu_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=8)
@@ -55,14 +63,22 @@ def _blur(x: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
 def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
          kernel_size: int = 11, kernel_sigma: float = 1.5, k1: float = 0.01,
          k2: float = 0.03, downsample: bool = True) -> torch.Tensor:
-    """Per-image SSIM of NHWC tensors -> (B,) f32 (piq reduction='none')."""
+    """Per-image SSIM of NHWC tensors -> (B,) f32 (piq reduction='none');
+    under a spatial context, each image's share of it."""
     x = x.float() / data_range
     y = y.float() / data_range
+    ctx = spatial.current()
+    height = x.shape[1] if ctx is None else ctx.height
     if downsample:
-        f = max(1, round(min(x.shape[1], x.shape[2]) / 256))
+        f = max(1, round(min(height, x.shape[2]) / 256))
         if f > 1:
+            if x.shape[1] % f:
+                raise ValueError(f"a band of {x.shape[1]} rows does not pool by {f}")
             pool = lambda t: F.avg_pool2d(t.permute(0, 3, 1, 2), f).permute(0, 2, 3, 1)
             x, y = pool(x), pool(y)
+            height //= f
+    if ctx is not None:
+        x, y = with_rows_below(x, y, kernel_size - 1)
     c = x.shape[-1]
     planes = torch.cat([x, y, x * x, y * y, x * y], dim=-1)
     blurred = _blur(planes, kernel_size, kernel_sigma)
@@ -81,4 +97,4 @@ def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
     c1, c2 = k1 ** 2, k2 ** 2
     cs = (2.0 * sigma_xy + c2) / (sigma_xx + sigma_yy + c2)
     ss = (2.0 * mu_xy + c1) / (mu_xx + mu_yy + c1) * cs
-    return ss.mean(dim=(1, 2, 3))
+    return mean(ss, dim=(1, 2, 3), rows=height - kernel_size + 1)

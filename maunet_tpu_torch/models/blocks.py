@@ -25,6 +25,15 @@ kernel or for cuDNN) from one forward to the next (``VGGBlock._constants``).
 Lane packing (``Packed``, ``BatchNormPacked``, ``PackedConv1x1``,
 ``_ConvParams``) is a TPU layout device and is not ported; the whole-block
 pair kernel is, on plain NHWC (``VGGBlock.fuse_pair``).
+
+Under a spatial context (``parallel/spatial.py``) a block's tensors are this
+rank's band of rows.  Every 3x3 conv then extends its spatial parts by a halo
+row on each side that has a neighbour (two rows for the pair kernel, whose
+second conv reads the first's rows around its own), runs as on a whole map
+and keeps its own rows (:func:`with_halo`).  The closed-form embedding term
+sees the extended map, whose first and last rows are image borders only
+where no halo was added, so a band's edge rows inside the image get the
+interior taps.  BatchNorm's statistics are taken over the own rows.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from torch.utils.checkpoint import checkpoint
 from maunet_tpu_torch.ops import train_conv
 from maunet_tpu_torch.ops.kernels import packed_vgg as pvgg
 from maunet_tpu_torch.parallel.multihost import world_size
+from maunet_tpu_torch.parallel.spatial import current as spatial_context
+from maunet_tpu_torch.parallel.spatial import halo_rows
 
 # JAX sends exactly the convs of output width 64 (the U-Net's level-0 row) to
 # the fused Pallas kernel at the serving config; wider convs are plain XLA
@@ -126,6 +137,20 @@ def split_parts(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
     return hw, spatial, weights, bcast
 
 
+def with_halo(spatial: Sequence[torch.Tensor], hw: tuple[int, int], rows: int):
+    """Under a spatial context: the spatial parts with ``rows`` halo rows of
+    each neighbouring band added (contiguous), their (H, W), and the crop
+    that keeps a result's rows of this band.  Outside one: the parts, ``hw``
+    and the identity."""
+    if spatial_context() is None:
+        return spatial, hw, lambda y: y
+    h = hw[0]
+    extended = [halo_rows(p, rows, rows) for p in spatial]
+    top = extended[0][1]
+    parts = [e.contiguous() for e, _ in extended]
+    return parts, (parts[0].shape[1], hw[1]), lambda y: y[:, top:top + h].contiguous()
+
+
 def embedding_add(bcast, hw: tuple[int, int]) -> torch.Tensor | None:
     """The fused kernels' compact ``add``: the closed-form conv of every
     broadcast embedding, summed, or ``None`` without one."""
@@ -168,12 +193,13 @@ def conv_bn_relu(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
     call, so a gradient reaches them (on CPU tensors: the fused kernel has no
     backward)."""
     hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype)
+    spatial, hw, crop = with_halo(spatial, hw, 1)
     scale, bias = bn_affine(conv, bn)
     if uses_fused_kernel(conv.out_channels):
-        return pvgg.conv3x3_fused(spatial, weights, scale=scale, bias=bias,
-                                  add=embedding_add(bcast, hw), relu=True)
-    return wide_conv_bn_relu(spatial, wide_conv_weight(weights, compute_dtype),
-                             scale, bias, bcast, hw, compute_dtype)
+        return crop(pvgg.conv3x3_fused(spatial, weights, scale=scale, bias=bias,
+                                       add=embedding_add(bcast, hw), relu=True))
+    return crop(wide_conv_bn_relu(spatial, wide_conv_weight(weights, compute_dtype),
+                                  scale, bias, bcast, hw, compute_dtype))
 
 
 def _source_stamp(t: torch.Tensor | None):
@@ -219,9 +245,10 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     under :func:`frozen_batch_statistics`.
 
     Under data parallelism the batch is the global one, as under JAX's GSPMD
-    (the mean runs over the sharded batch axis): each rank's per-channel
-    [sum y, sum y^2, count] is summed over the process group by a
-    differentiable all-reduce, whose backward sums the gradients of those
+    (the mean runs over the sharded batch axis, and over the sharded rows
+    under the spatial axis, where each pixel lies on one rank): each rank's
+    per-channel [sum y, sum y^2, count] is summed over the process group by
+    a differentiable all-reduce, whose backward sums the gradients of those
     sums over the ranks; every rank then updates the running statistics
     alike.  With one rank nothing is exchanged."""
     yf = y.float()
@@ -260,7 +287,13 @@ def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
     cancels it exactly.  BN in f32, ReLU, then a cast to ``compute_dtype``."""
     hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype,
                                               contiguous=False)
-    if fused and train_conv.takes_kernel(spatial, conv.out_channels, grouped):
+    ctx = spatial_context()
+    # JAX's rule reads the whole map's shape.
+    height = hw[0] if ctx is None else ctx.rows(hw[0])[0]
+    takes_kernel = fused and train_conv.takes_kernel(spatial, conv.out_channels, grouped,
+                                                    height=height)
+    spatial, hw, crop = with_halo(spatial, hw, 1)
+    if takes_kernel:
         y = train_conv.train_conv3x3(spatial, weights)
     else:
         x = torch.cat(spatial, dim=-1) if len(spatial) > 1 else spatial[0]
@@ -270,7 +303,7 @@ def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
                      padding=1).permute(0, 2, 3, 1)
     for e, w_e in bcast:
         y = y + const_conv(e, w_e, *hw).to(compute_dtype)
-    y = y + conv.bias.detach().to(compute_dtype)
+    y = crop(y + conv.bias.detach().to(compute_dtype))
     return torch.relu(batch_norm_train(y, bn)).to(compute_dtype).contiguous()
 
 
@@ -365,10 +398,11 @@ class VGGBlock(nn.Module):
         cd = self.compute_dtype
         hw, spatial, weights, bcast = split_parts(parts, conv, cd)
         scale, bias, weight = self._constants(which, conv, bn, self._split(parts, hw), weights)
+        spatial, hw, crop = with_halo(spatial, hw, 1)
         if uses_fused_kernel(conv.out_channels):
-            return pvgg.conv3x3_fused(spatial, weight, add=embedding_add(bcast, hw),
-                                      relu=True)
-        return wide_conv_bn_relu(spatial, weight, scale, bias, bcast, hw, cd)
+            return crop(pvgg.conv3x3_fused(spatial, weight, add=embedding_add(bcast, hw),
+                                           relu=True))
+        return crop(wide_conv_bn_relu(spatial, weight, scale, bias, bcast, hw, cd))
 
     def takes_pair_kernel(self) -> bool:
         return (self.fuse_pair and not self.training
@@ -392,19 +426,21 @@ class VGGBlock(nn.Module):
             return self._train_forward(*parts)
         if self.takes_pair_kernel():
             hw, spatial, weights, bcast = split_parts(list(parts), self.conv1, cd)
+            split = self._split(parts, hw)
+            # Two rows of halo: conv2's rows read conv1's rows around them.
+            spatial, hw, crop = with_halo(spatial, hw, 2)
             add = embedding_add(bcast, hw)
             if torch.is_grad_enabled():
                 scale1, bias1 = bn_affine(self.conv1, self.bn1)
                 scale2, bias2 = bn_affine(self.conv2, self.bn2)
-                return pvgg.conv3x3_pair_fused(
+                return crop(pvgg.conv3x3_pair_fused(
                     spatial, weights, self.conv2.weight, scale1=scale1, bias1=bias1,
-                    scale2=scale2, bias2=bias2, add=add)
+                    scale2=scale2, bias2=bias2, add=add))
             # The same kept constants as the two single-conv launches use.
-            _, _, w1 = self._constants("conv1", self.conv1, self.bn1,
-                                       self._split(parts, hw), weights)
+            _, _, w1 = self._constants("conv1", self.conv1, self.bn1, split, weights)
             _, _, w2 = self._constants("conv2", self.conv2, self.bn2,
                                        ((self.conv2.in_channels, False),), [self.conv2.weight])
-            return pvgg.conv3x3_pair_fused(spatial, w1, w2, add=add)
+            return crop(pvgg.conv3x3_pair_fused(spatial, w1, w2, add=add))
         if torch.is_grad_enabled():
             x = conv_bn_relu(list(parts), self.conv1, self.bn1, cd)
             return conv_bn_relu([x], self.conv2, self.bn2, cd)
@@ -415,6 +451,7 @@ class VGGBlock(nn.Module):
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool of an NHWC tensor, floor semantics for odd sizes
     (torch ``nn.MaxPool2d(2, 2)``, reference src/model.py:58,218): 31 -> 15.
+    Local under a spatial context: the guard makes every band's height even.
 
     The where-chain of JAX (blocks.py:717-720): rows first, then columns,
     ``>=`` so the first of tied values wins, and the gradient goes to that

@@ -80,14 +80,19 @@ def supported(shapes: Sequence[Sequence[int]], features: int,
 
 
 def takes_kernel(parts: Sequence[torch.Tensor], features: int,
-                 grouped: bool = False) -> bool:
+                 grouped: bool = False, height: int | None = None) -> bool:
     """:func:`supported`, and what kernel A asks on the card: bf16 parts.  A
-    CPU tensor of any dtype takes the plain version."""
+    CPU tensor of any dtype takes the plain version.  ``height``: the whole
+    map's, where ``parts`` are a band of its rows (the spatial mesh axis),
+    which JAX's rule reads."""
     if not parts or len(parts) > pvgg.MAX_PARTS:
         return False
     if parts[0].device.type == "cuda" and any(p.dtype != torch.bfloat16 for p in parts):
         return False
-    return supported([tuple(p.shape) for p in parts], features, grouped)
+    shapes = [tuple(p.shape) for p in parts]
+    if height is not None:
+        shapes = [(s[0], height, *s[2:]) for s in shapes]
+    return supported(shapes, features, grouped)
 
 
 class TrainConv3x3(torch.autograd.Function):

@@ -3,8 +3,10 @@
 Port of ``maunet_tpu/parallel/infer.py``.  The evaluator's forward and
 metrics, the sensitivity sweeps and the serving engine's ``predict_many``
 are independent per sample, so they scale out by splitting the batch over
-every device of the mesh, with the model replicated and no collectives.  JAX
-runs the split as one ``shard_map`` program; here one process drives the
+every device of the mesh, flat over both its axes (a data x spatial mesh
+shards no rows here, as in JAX), with the model replicated and no
+collectives.  JAX runs the split as one ``shard_map`` program; here one
+process drives the
 mesh's devices in turn: each device gets a replica of the model, made once,
 its shard of the batch, and the work is issued on every device before any
 result is gathered, so the devices run side by side.

@@ -50,9 +50,9 @@ class TrainConfig:
         "change_mask", "before_dw", "after_dw",
     )
     target_channels: tuple[str, ...] = ("after_ndvi", "after_temp")
-    # ParallelConfig: the data axis is the process group's world size
-    # (parallel/mesh.data_axis_size); the spatial axis is not ported.
-    data_parallel: int = -1            # -1: every rank
+    # ParallelConfig: the process group's ranks, laid out data x spatial
+    # (parallel/mesh.data_axis_size); spatial ranks share each image's rows.
+    data_parallel: int = -1            # -1: every rank the spatial axis leaves
     spatial_parallel: int = 1
 
 

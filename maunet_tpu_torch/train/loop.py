@@ -20,11 +20,23 @@ Validation sums are added over the ranks, so every rank gets the same val
 loss.  Rank 0 alone writes the CSV, the checkpoints and the tracker rows,
 and the others wait for it at a barrier; on resume every rank reads the
 file.  No prediction plots are drawn with more than one rank (JAX
-loop.py:304-308).  The spatial axis is not ported.
+loop.py:304-308).
+
+With a spatial axis (``spatial_parallel > 1``: the process group laid out
+data x spatial by ``multihost.initialize_multihost(spatial_parallel=)``)
+the ranks of one data index load the same rows, the whole tiles, and flip
+them alike (one seed, one draw per row, a horizontal flip, so the flip
+commutes with the row bands); each then keeps its band of ``maps`` and
+``targets`` before the upload, and the steps run under the spatial context
+(``train/steps.py``).  Validation runs in the same layout: the per-sample
+losses are whole-image values on every rank of a spatial group, and the
+sums are added over the data axis.  The tile height must pass
+``parallel.mesh.validate_spatial_sharding``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import logging
 import os
@@ -43,7 +55,8 @@ from maunet_tpu_torch.data.transforms import RandomFlip
 from maunet_tpu_torch.losses import get_loss_fn
 from maunet_tpu_torch.models.factory import UrbanPredictor
 from maunet_tpu_torch.parallel.mesh import data_axis_size
-from maunet_tpu_torch.parallel.multihost import host_batch_slice, rank, world_size
+from maunet_tpu_torch.parallel.multihost import axes, host_batch_slice, rank, world_size
+from maunet_tpu_torch.parallel.spatial import shard_rows
 from maunet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from maunet_tpu_torch.train.config import TrainConfig, hyperparams_from_config
 from maunet_tpu_torch.train.metrics import CSVLogger, RunningLoss
@@ -77,18 +90,21 @@ class Trainer:
                  study_name: str = "urban-predictor", trial_id: int = 0,
                  device: str | torch.device = "cuda", trackers: list | None = None,
                  use_mesh: bool = True):
-        """``device`` is this rank's.  ``use_mesh``: train data-parallel over
-        the ranks of the process group (``cfg.data_parallel`` must be -1 or
-        their number; one rank, or none, is a single device); without it a
-        group of more than one rank is refused."""
+        """``device`` is this rank's.  ``use_mesh``: train over the ranks of
+        the process group, ``cfg.spatial_parallel`` of them to an image
+        (``cfg.data_parallel`` must be -1 or the rest; one rank, or none, is
+        a single device); without it a group of more than one rank is
+        refused."""
         self.cfg = cfg
         self.data_dir = data_dir
         self.work_dir = work_dir
         self.study_name = study_name
         self.trial_id = trial_id
         self.device = torch.device(device)
+        self.spatial_parallel = 1
         if use_mesh:
             self.data_parallel = data_axis_size(cfg.data_parallel, cfg.spatial_parallel)
+            self.spatial_parallel = world_size() // self.data_parallel
         elif world_size() > 1:
             raise ValueError("use_mesh=False trains on one device, but a process group "
                              f"of {world_size()} ranks is initialised")
@@ -101,6 +117,7 @@ class Trainer:
                 f"parallel.data_parallel or adjust the batch size.")
         self._host_slice = (host_batch_slice(cfg.batch_size) if self.data_parallel > 1
                             else None)
+        self.ranks = self.data_parallel * self.spatial_parallel
         self.primary = rank() == 0
         self.trackers = (trackers or []) if self.primary else []
         os.makedirs(work_dir, exist_ok=True)
@@ -117,7 +134,7 @@ class Trainer:
         # Plot steps run where JAX's do, whether or not there is anything to
         # draw with: their metrics lack grad_norm there too.  None with more
         # than one rank.
-        self.plot_steps = bool(cfg.frequency_plt) and self.data_parallel == 1
+        self.plot_steps = bool(cfg.frequency_plt) and self.ranks == 1
         self.render_plots = self.plot_steps and (
             importlib.util.find_spec("matplotlib") is not None)
         if self.plot_steps and not self.render_plots:
@@ -128,18 +145,22 @@ class Trainer:
                             f"{self.study_name}_trial_{self.trial_id}_{kind}.pth")
 
     def _device_batches(self, dataset, shuffle: bool, epoch: int, drop_last: bool):
-        """This rank's rows of each global batch, on its device."""
-        return prefetch_to_device(
-            make_batches(dataset, self.cfg.batch_size, shuffle=shuffle,
-                         seed=self.cfg.seed, epoch=epoch, drop_last=drop_last,
-                         sample_slice=self._host_slice),
-            self.device)
+        """This rank's rows of each global batch, and its band of each
+        image's rows under a spatial axis, on its device."""
+        batches = make_batches(dataset, self.cfg.batch_size, shuffle=shuffle,
+                               seed=self.cfg.seed, epoch=epoch, drop_last=drop_last,
+                               sample_slice=self._host_slice)
+        if self.spatial_parallel > 1:
+            batches = (dataclasses.replace(b, maps=shard_rows(b.maps),
+                                           targets=shard_rows(b.targets))
+                       for b in batches)
+        return prefetch_to_device(batches, self.device)
 
     def _rank0_writes(self, write: Callable[[], None]) -> None:
         """Run ``write`` on rank 0 alone; the other ranks wait for it."""
         if self.primary:
             write()
-        if self.data_parallel > 1:
+        if self.ranks > 1:
             dist.barrier()
 
     def init_state(self, in_channels: int) -> TrainState:
@@ -187,8 +208,9 @@ class Trainer:
 
     def validate(self, state: TrainState) -> dict[str, float]:
         """Masked validation over the val split (reference src/train.py:20-60);
-        with several ranks, each takes its rows of every padded batch and the
-        sums are added over the ranks."""
+        with several ranks, each takes its rows of every padded batch (its
+        band of them under a spatial axis) and the sums are added over the
+        data axis."""
         sums: dict[str, torch.Tensor] = {}
         for batch in self._device_batches(self.val_ds, False, 0, drop_last=False):
             for k, v in eval_step(state.model, batch, self.cfg.nb_metadata_features).items():
@@ -196,7 +218,7 @@ class Trainer:
         if self.data_parallel > 1 and sums:       # every rank sees the same batches
             keys = sorted(sums)
             stacked = torch.stack([sums[k] for k in keys])
-            dist.all_reduce(stacked)
+            dist.all_reduce(stacked, group=axes().data_group)
             sums = dict(zip(keys, stacked))
         totals = {k: float(v) for k, v in sums.items()}
         n = totals.pop("num_samples", 0.0)
@@ -234,7 +256,8 @@ class Trainer:
             log.info(f"Resumed from epoch {start_epoch} (step {state.step}, "
                      f"best_val {best_val:.4f}).")
         log.info(f"Model: {cfg.model_type}, params={param_count(state):,}, "
-                 f"device={self.device}, data-parallel ranks={self.data_parallel}")
+                 f"device={self.device}, data-parallel ranks={self.data_parallel}, "
+                 f"spatial ranks={self.spatial_parallel}")
 
         ema = RunningLoss("ema", ema_alpha=0.98)
         sma = RunningLoss("sma", window_size=50)

@@ -22,6 +22,18 @@ JAX's GSPMD step does.  The logged loss components are averaged alike.  An
 explicit all-reduce keeps the module's own state_dict keys, which a
 ``DistributedDataParallel`` wrapper would prefix with ``module.``.  With one
 rank nothing is exchanged.
+
+The spatial axis (``parallel/spatial.py``): the ranks of one data index hold
+bands of the same images' rows, and both steps run the model and the losses
+under :func:`~maunet_tpu_torch.parallel.spatial.row_shards`.  Each rank's
+loss is then its share of its data index's loss, so its gradient is a share
+too (the LSTM and the metadata MLP, which run whole on every rank, get the
+part their band's rows give them): the gradients and the logged losses are
+summed over every rank and divided by the data axis, which sums them over
+the spatial group and averages them over the data axis at once.  The
+backward runs under the context too: ``remat``'s recompute exchanges halos
+again.  The eval step's per-sample losses are whole-image values on every
+rank of a spatial group (``losses.per_sample_losses``).
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 from maunet_tpu_torch.losses.combined import per_sample_losses
-from maunet_tpu_torch.parallel.multihost import world_size
+from maunet_tpu_torch.parallel.multihost import axes, world_size
+from maunet_tpu_torch.parallel.spatial import row_shards
 from maunet_tpu_torch.train.optimizers import clip_by_global_norm_, global_norm
 from maunet_tpu_torch.train.state import TrainState
 
@@ -103,20 +116,21 @@ def _update(state: TrainState, batch: Batch, loss_fn: LossFn, gradient_clipping:
     """The step itself: (loss components, global gradient norm, outputs)."""
     model, opt = state.model, state.optimizer
     model.train()
-    outputs = model_outputs(model, batch, metadata_features)
-    losses = ds_loss(loss_fn, outputs, batch["targets"])
-    opt.zero_grad(set_to_none=True)
-    losses["total"].backward()
+    with row_shards(batch["maps"].shape[1]):
+        outputs = model_outputs(model, batch, metadata_features)
+        losses = ds_loss(loss_fn, outputs, batch["targets"])
+        opt.zero_grad(set_to_none=True)
+        losses["total"].backward()
     params = [p for group in opt.param_groups for p in group["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    world = world_size()
-    if world > 1:
-        average_over_ranks_(grads, world)
+    if world_size() > 1:
+        data = axes().data
+        average_over_ranks_(grads, data)
         losses = dict(zip(losses, average_over_ranks_(
-            [torch.stack([v.detach() for v in losses.values()])], world)[0]))
+            [torch.stack([v.detach() for v in losses.values()])], data)[0]))
     norm = global_norm(grads)
     if gradient_clipping and gradient_clipping > 0:
         clip_by_global_norm_(grads, norm, gradient_clipping)
@@ -130,11 +144,13 @@ def _update(state: TrainState, batch: Batch, loss_fn: LossFn, gradient_clipping:
 BUCKET_ELEMENTS = 1 << 22
 
 
-def average_over_ranks_(tensors: list[torch.Tensor], world: int) -> list[torch.Tensor]:
-    """Replace each tensor in place by its mean over the process group's
-    ``world`` ranks: the tensors are packed, dtype by dtype, into flat
-    buckets of up to :data:`BUCKET_ELEMENTS`, each summed by one all-reduce,
-    divided by ``world`` and unpacked.  Returns ``tensors``."""
+def average_over_ranks_(tensors: list[torch.Tensor], data: int) -> list[torch.Tensor]:
+    """Replace each tensor in place by its sum over the process group's
+    ranks divided by ``data``, the data axis: the mean over the data axis of
+    the sums over each spatial group (with one spatial rank, the mean over
+    the ranks).  The tensors are packed, dtype by dtype, into flat buckets
+    of up to :data:`BUCKET_ELEMENTS`, each summed by one all-reduce, divided
+    and unpacked.  Returns ``tensors``."""
     buckets: list[list[torch.Tensor]] = []
     size = 0
     for t in tensors:
@@ -146,7 +162,7 @@ def average_over_ranks_(tensors: list[torch.Tensor], world: int) -> list[torch.T
     for bucket in buckets:
         flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.all_reduce(flat)
-        flat.div_(world)
+        flat.div_(data)
         offset = 0
         for t in bucket:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -159,10 +175,13 @@ def eval_step(model: torch.nn.Module, batch: Batch,
               metadata_features: int = 8) -> dict[str, torch.Tensor]:
     """Masked per-sample loss sums over the batch's valid samples, plus
     ``num_samples``, in eval mode: the host adds them up over batches, so
-    the padded tail of the last batch drops out exactly."""
+    the padded tail of the last batch drops out exactly.  Under a spatial
+    axis the per-sample losses are summed over the spatial group before the
+    mask, so every rank of it returns its data index's sums."""
     model.eval()
-    outputs = forward_fn(model, batch, metadata_features)
-    per_sample = per_sample_losses(outputs, batch["targets"])
+    with row_shards(batch["maps"].shape[1]):
+        outputs = forward_fn(model, batch, metadata_features)
+        per_sample = per_sample_losses(outputs, batch["targets"])
     valid = batch["valid"].float()
     sums = {k: (v * valid).sum() for k, v in per_sample.items()}
     sums["num_samples"] = valid.sum()

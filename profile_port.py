@@ -3,7 +3,10 @@
 with ``--train`` one train step, with ``--eval`` one evaluation batch of
 each model family, with ``--conv`` the fused 3x3 conv kernel alone, with
 ``--lstm`` the LSTM kernels alone, with ``--resize`` the resize kernel alone,
-or with ``--masked`` the masked class sums kernel alone.
+with ``--masked`` the masked class sums kernel alone, or with
+``--grad-spread`` how far a train step's gradients move with the order of
+their sums (one process, cuDNN or not, two ranks data- or spatial-parallel;
+``grad_spread``).
 
     python3 profile_port.py [--trace PATH]           # default build/port_forward_trace.json
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
@@ -12,6 +15,7 @@ or with ``--masked`` the masked class sums kernel alone.
     python3 profile_port.py --lstm [--parent PATH ...]   # no trace; PATH: other lstm.cu files
     python3 profile_port.py --resize [--parent PATH]     # no trace; PATH: another resize_pack.cu
     python3 profile_port.py --masked [--parent PATH ...] # no trace; PATH: other masked_stats.cu files
+    python3 profile_port.py --grad-spread                # no trace
 
 The serving mode builds the full-width serving U-Net of ``chip_smoke.py``
 (seeded weights and BatchNorm statistics), assembles 8 requests at 256² as
@@ -1076,6 +1080,76 @@ def conv_profile(dev: torch.device) -> None:
     torch.cuda.synchronize()
 
 
+def grad_spread(dev) -> None:
+    """How far one f32 SGD step's gradients (``TrainConfig``'s model at full
+    width, B = 16, 256², l1-gradient-ssim, TF32 off) move when only the
+    order of the sums changes: one process against itself, with cuDNN
+    against PyTorch's own convolutions, and against two Gloo ranks sharing
+    the card at (data, spatial) (2, 1) and (1, 2), with cuDNN and without.
+    Per comparison, the six tensors whose largest difference is largest
+    against their largest |g|."""
+    import tempfile
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.losses import get_loss_fn
+    from maunet_tpu_torch.models.factory import UrbanPredictor
+    from maunet_tpu_torch.train.optimizers import make_optimizer
+    from maunet_tpu_torch.train.state import TrainState
+    from maunet_tpu_torch.train.steps import train_step
+
+    loss = "l1-gradient-ssim"
+    kwargs = dict(model_type="unet", out_channels=2, temporal_dim=64, meta_dim=64,
+                  lstm_dim=96, base_filters=64, in_channels=23, meta_features=8,
+                  compute_dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = cs.make_data(tmp)
+        model = UrbanPredictor(**{**kwargs, "compute_dtype": torch.float32},
+                               generator=torch.Generator().manual_seed(42))
+        state_path, batch_path = os.path.join(tmp, "s.pt"), os.path.join(tmp, "b.npz")
+        torch.save(model.state_dict(), state_path)
+        host = next(make_batches(NpzDataset(os.path.join(data, "train"), cs.T_SERIES), 16))
+        np.savez(batch_path, **host.as_dict())
+        model = model.to(dev)
+        batch = to_device(host_tensors(host, pin=True), dev)
+
+        def single():
+            model.load_state_dict(torch.load(state_path, weights_only=True))
+            st = TrainState(model, make_optimizer(model.parameters(), "sgd", 1e-2, 0.0, 0.0), 0)
+            train_step(st, batch, get_loss_fn(loss))
+            return {n: p.grad.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+
+        def report(label, got, want):
+            rows = sorted(((float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30),
+                            n, float(w.abs().max())) for n, w in want.items()), reverse=True)
+            print(f"{label}: " + "; ".join(f"{n} {r:.3e} of max|g| {m:.3e}"
+                                           for r, n, m in rows[:6]), flush=True)
+
+        def ranks(name, cudnn):
+            tasks = [{"kind": "step", "name": f"{name}_sp{sp}", "spatial": sp,
+                      "state": state_path, "batch": batch_path, "model": kwargs,
+                      "optimizer": ["sgd", 1e-2, 0.0, 0.0], "loss": loss} for sp in (1, 2)]
+            out = cs.run_ranks(tmp, name, tasks, dev, world=2, cudnn=cudnn)
+            return {sp: torch.load(os.path.join(out, f"{name}_sp{sp}_rank0.pt"),
+                                   weights_only=True)["grads"] for sp in (1, 2)}
+
+        want = single()
+        report("one process, twice", single(), want)
+        got = ranks("cudnn", True)
+        report("two ranks (2, 1)", got[1], want)
+        report("two ranks (1, 2)", got[2], want)
+        torch.backends.cudnn.enabled = False
+        want_own = single()
+        report("one process, PyTorch's convolutions against cuDNN's", want_own, want)
+        got = ranks("own", False)
+        report("two ranks (2, 1), PyTorch's convolutions", got[1], want_own)
+        report("two ranks (1, 2), PyTorch's convolutions", got[2], want_own)
+        torch.backends.cudnn.enabled = True
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
@@ -1091,6 +1165,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                       help="check and time the resize kernel alone")
     mode.add_argument("--masked", action="store_true",
                       help="check and time the masked class sums kernel alone")
+    mode.add_argument("--grad-spread", action="store_true",
+                      help="how far one f32 step's gradients move with the order of "
+                           "the sums: one process, cuDNN or not, two ranks at (2, 1) "
+                           "and (1, 2)")
     parser.add_argument("--parent", nargs="+", default=None, metavar="PATH",
                         help="with --resize, --masked or --lstm: another resize_pack.cu "
                              "(one), masked_stats.cu or lstm.cu (one or more) to hold the "
@@ -1134,6 +1212,8 @@ def main(argv: list[str] | None = None) -> int:
         lstm_times(dev, parents)
     elif args.masked:
         masked_profile(dev, args.parent)
+    elif args.grad_spread:
+        grad_spread(dev)
     elif args.train:
         train_profile(trace, dev)
     elif args.eval:

@@ -16,8 +16,9 @@ taken.  Held here:
   every rank, and rank 0's checkpoint restored into a state of another seed
   reproducing it;
 - each rank's flips in a resumed run equal an unbroken run's;
-- the configuration checks: the batch size must divide over the ranks, the
-  spatial axis raises, ``use_mesh=False`` refuses a group;
+- the configuration checks: the batch size must divide over the ranks,
+  ``use_mesh=False`` refuses a group, the spatial guard refuses 32² tiles
+  (the spatial axis itself: ``test_torch_parallel_spatial.py``);
 - ``make_batches``' ``sample_slice`` and ``pad_final`` bit for bit against
   JAX's.
 """
@@ -251,10 +252,17 @@ def test_batch_size_and_data_parallel_checked_against_the_ranks(epoch_data, tmp_
                 use_mesh=False)
 
 
-def test_spatial_axis_raises(epoch_data, tmp_path):
-    with pytest.raises(NotImplementedError, match="spatial mesh axis"):
-        mesh.make_mesh(2, 2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="halo"):
+def test_spatial_guard_rejects_32_tiles(epoch_data, tmp_path, monkeypatch):
+    """A 2 x 2 mesh is made, but 32² tiles (a 2-row bottleneck) are refused
+    over 2 and 4 spatial ranks, as JAX's guard refuses them, and so is a
+    Trainer whose spatial axis the process group was not laid out with."""
+    assert mesh.make_mesh(2, 2, devices=["cpu"] * 4).shape == {"data": 2, "spatial": 2}
+    for sp in (2, 4):
+        with pytest.raises(ValueError, match="bottleneck"):
+            mesh.validate_spatial_sharding(32, sp)
+    mesh.validate_spatial_sharding(64, 4)
+    monkeypatch.setattr(mesh, "world_size", lambda: 4)
+    with pytest.raises(ValueError, match="spatial_parallel=2 to initialize_multihost"):
         Trainer(TrainConfig(**EPOCH_CFG, spatial_parallel=2), epoch_data,
                 work_dir=str(tmp_path), device="cpu")
 
