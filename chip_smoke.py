@@ -42,10 +42,18 @@ Phases, one output line each (or a few for the kernel table):
    it writes.  C runs at every shape of ``RESIZE_CASES``, D at every shape
    of ``MASKED_CASES`` (the evaluation batch, B = 8 and 3 of it, a 250²
    tile, bf16, f16, absent classes, classes outside 0..8, C = 1, 3, 4).
-   Two launches of C, D and dW on the same inputs must give the same bits;
+   Two launches of C, D and dW on the same inputs must give the same bits.
+   A and G also run their f32 entries (``csrc/conv3x3_f32.cu``): A at the
+   serving, evaluation (U-Net and U-Net++) and planner shapes and two odd
+   sizes, G at the eleven pair blocks (B = 8) and two odd sizes, each
+   against its plain version in f32 and beside cuDNN's f32 conv with the
+   same epilogue (TF32 off), G also against the two f32 A launches it
+   replaces; ``nvcc -Xptxas -v`` on that source, run beside the build, gives
+   each f32 instantiation's registers and spills for their rows;
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
-   and ``golden_unetpp.npz`` run on the card in bf16 and are held against the
-   JAX package's recorded f32 outputs;
+   and ``golden_unetpp.npz`` run on the card in bf16 and in f32 (A's entry
+   of that dtype alone launching) and are held against the JAX package's
+   recorded f32 outputs;
 5. serving path: a full-width serving U-Net (base 64, LSTM 96, T = 828,
    bf16) with seeded random weights and BatchNorm statistics is saved as a
    reference-layout ``.pth`` and served through ``PlannerEngine`` on the
@@ -198,16 +206,35 @@ Phases, one output line each (or a few for the kernel table):
    relative of this process's epoch (three bf16 AdamW steps from gradients
    that any other order of their sums moves by up to 2% of a tensor's
    largest, as a data-parallel split does: ``profile_port.py
-   --grad-spread``), and rank 0's checkpoint restored reproducing it.
+   --grad-spread``), and rank 0's checkpoint restored reproducing it;
+15. f32 paths (the TPU kernels compute in the parts' dtype, so f32 models
+   run A's and G's f32 entries): (a) both full-width models (U-Net base 64,
+   U-Net++ base 32) in f32 on 8 test samples, against the plain versions and
+   with ``fuse_pair`` (G's f32 entry at each eligible block) against the
+   forward of two launches a block; (b) ``maunet-torch evaluate --precision
+   float32`` on phase 6's split; (c) a ``Trainer`` epoch at ``TrainConfig``'s
+   defaults in f32, its validation included; (d) one f32 train step with
+   ``train_fused_conv`` (A's f32 entry exactly 4 launches) against the plain
+   step; (e) the (1, 2) spatial forward of (a)'s U-Net in f32 on two Gloo
+   ranks sharing the card, against (a)'s unsharded forward; in each of
+   (a)-(e) the f32 counters must rise, the bf16 ones stay at 0, and no
+   eval-mode block conv of at most 64 outputs may go to cuDNN.  Then the
+   command line's train across ranks: (f) ``cli.main(["train", "--search",
+   ...])`` on the same two ranks (one study, the same trial bits on both),
+   and (g) ``python -m torch.distributed.run --nproc-per-node 1 -m
+   maunet_tpu_torch.cli train`` beside the plain command, started at the
+   phase's beginning, whose histories must agree.
 
 The line before the last is the kernel summary JSON: per kernel the launch
 count of its path (A, B, C: serving; E, F's gate terms, F, dW: training; D:
 evaluation; G: the pair configuration; C's row entry, ``resize_rows``: one
-rank's serving forward at (1, 2)), and over that path's shapes in phase
-3 (B = 8 at 256² for A and C, B = 8 for B, B = 16 for E, F's two launches
-(the ``lstm_backward`` row times both), dW and D, the eleven
-eligible blocks at B = 8 for G; one launch per distinct shape; for C's row
-entry, phase 14's band 0 of 2 at the four serving upsamples) the largest
+rank's serving forward at (1, 2); A's f32 entry: phase 15's f32 U-Net
+forward; G's: both models' f32 fuse_pair forwards), and over that path's
+shapes in phase 3 (B = 8 at 256² for A, A in f32 and C, B = 8 for B, B = 16
+for E, F's two launches (the ``lstm_backward`` row times both), dW and D,
+the eleven eligible blocks at B = 8 for G and G in f32; one launch per
+distinct shape; for C's row entry, phase 14's band 0 of 2 at the four
+serving upsamples) the largest
 error against the plain version and the summed kernel, plain, bound and
 library times.  The other shapes of phase 3 are pass/fail checks printed on
 their own lines.  The last line
@@ -230,8 +257,17 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
     <= 1e-5 + 1e-5 |plain|;
   lstm dW (f32, a sum of B * T terms, 13,248 at B = 16):
     <= 1e-4 + 1e-3 max|plain|;
+  conv3x3_fused and conv3x3_pair_fused in f32 (f32 entries): <= 1e-5 +
+    1e-5 |plain|, f32 sums of up to 1,728 products in other orders; the pair
+    against two f32 A launches the same (they sum in the same order);
   golden fixtures, bf16 against f32: <= 3e-2 (the port's bf16 forward on
-    the CPU is 6.4e-3 from the U-Net's, on outputs up to 0.85);
+    the CPU is 6.4e-3 from the U-Net's, on outputs up to 0.85); f32 against
+    f32: <= 1e-4;
+  f32 forwards (phase 15 (a), (e)): <= 1e-3 of the output's largest
+    magnitude (or 1e-3); the f32 fused train step: loss within 1e-5 and
+    gradient norm within 1e-4 relative; the torchrun and plain commands'
+    val losses within 1e-4 relative (cuDNN's f32 backward sums in no fixed
+    order);
   serving path, kernels vs plain versions, bf16 end to end: the output's max
     difference <= 5% of its largest magnitude (rounding flips of one bf16
     ulp in the conv and resize outputs, carried through 18 convs);
@@ -287,6 +323,9 @@ T_SERIES = 828
 TRAIN_LENGTHS = [828, 828, 700, 600, 414, 300, 100, 1, 0, 827, 828, 500, 828, 64, 828, 2]
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 GOLDEN_TOL = 3e-2
+# The golden fixtures in f32 on the card: every kernel in f32 and TF32 off,
+# so only the orders of the f32 sums differ from JAX's.
+GOLDEN_TOL_F32 = 1e-4
 # The H100's published peaks (SXM, dense): device memory and tensor-core or
 # plain f32 rates, by the type a kernel computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -376,14 +415,15 @@ class KernelTable:
         return row
 
 
-def conv_work(b: int, hw, cins, cout: int, with_add: bool):
-    """One fused conv's bytes (bf16 parts and output, f32 weights, scale,
-    bias and add, each once) and operations (bf16 multiply-adds)."""
+def conv_work(b: int, hw, cins, cout: int, with_add: bool, kind: str = "bf16"):
+    """One fused conv's bytes (parts and output in ``kind``, f32 weights,
+    scale, bias and add, each once) and operations (multiply-adds in
+    ``kind``: bf16 or f32)."""
     h, w = hw
     cin = sum(cins)
-    nbytes = (b * h * w * (cin + cout) * 2 + 9 * cin * cout * 4 + 2 * cout * 4
-              + (b * 3 * w * cout * 4 if with_add else 0))
-    return nbytes, 2 * b * h * w * 9 * cin * cout, "bf16"
+    nbytes = (b * h * w * (cin + cout) * (2 if kind == "bf16" else 4) + 9 * cin * cout * 4
+              + 2 * cout * 4 + (b * 3 * w * cout * 4 if with_add else 0))
+    return nbytes, 2 * b * h * w * 9 * cin * cout, kind
 
 
 def train_conv_work(b: int, cins, cout: int):
@@ -394,20 +434,20 @@ def train_conv_work(b: int, cins, cout: int):
     return nbytes, 2 * b * 256 * 256 * 9 * cin * cout, "bf16"
 
 
-def cudnn_block(parts, convs, add):
+def cudnn_block(parts, convs, add, dtype=torch.bfloat16):
     """The library yardstick of the conv kernels: for each (weights, scale,
-    bias) of ``convs`` a cuDNN bf16 conv over the concatenated parts with its
-    epilogue (bias, the first conv's ``add``, ReLU).  The weights are folded
-    and laid out once, outside the timed call, as a deployed model would."""
+    bias) of ``convs`` a cuDNN conv in ``dtype`` (bf16, or f32 with TF32 off)
+    over the concatenated parts with its epilogue (bias, the first conv's
+    ``add``, ReLU).  The weights are folded and laid out once, outside the
+    timed call, as a deployed model would."""
     from maunet_tpu_torch.ops.kernels import packed_vgg
 
     folded = []
     for weights, scale, bias in convs:
-        wt = (torch.cat(list(weights), 1) * scale[:, None, None, None]).to(torch.bfloat16)
-        folded.append((wt.contiguous(memory_format=torch.channels_last),
-                       bias.to(torch.bfloat16)))
+        wt = (torch.cat(list(weights), 1) * scale[:, None, None, None]).to(dtype)
+        folded.append((wt.contiguous(memory_format=torch.channels_last), bias.to(dtype)))
     if add is not None:
-        add = (add * convs[0][1]).to(torch.bfloat16)
+        add = (add * convs[0][1]).to(dtype)
 
     def run():
         x = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
@@ -832,13 +872,151 @@ def check_kernels(table: KernelTable, dev) -> None:
             raise AssertionError(f"resize_pack {label}: two launches on the same input differ")
 
 
+F32_SOURCE = "maunet_tpu_torch/csrc/conv3x3_f32.cu"
+# A and G in f32 against their plain versions (F.conv2d in f32, TF32 off):
+# |kernel - plain| <= F32_TOL (1 + |plain|).  Both sum up to 9 x 192 f32
+# products per output, in other orders where cuDNN splits the sum.
+F32_TOL = 1e-5
+
+
+def start_ptxas(source: str) -> subprocess.Popen:
+    """``nvcc -Xptxas -v`` on one source, started beside the build."""
+    from maunet_tpu_torch.ops.kernels import _build
+
+    out = os.path.join(tempfile.mkdtemp(), "ptxas.o")
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                             source, "-o", out], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_registers(proc: subprocess.Popen, kernels: tuple[str, ...]) -> dict[str, str]:
+    """The registers and spill stores that ptxas reported for each
+    instantiation of ``kernels`` (by name), as ``name<template args>``."""
+    import re
+
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"ptxas -v failed:\n{err[-3000:]}")
+    pattern = re.compile(f"({'|'.join(kernels)})I((?:Li\\d+E)+)")
+    regs, name, spilled = {}, None, "?"
+    for line in err.splitlines():
+        m = pattern.search(line) if "Compiling entry" in line else None
+        if m:
+            name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            spilled = spill.group(1)
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            regs[name] = f"{used.group(1)} registers, {spilled} bytes spilled"
+            name = None
+    return regs
+
+
+def check_f32_kernels(table: KernelTable, dev, registers: dict[str, str]) -> None:
+    """Phase 3, f32: A's f32 entry at the serving, evaluation and planner
+    shapes and G's at the pair configuration's blocks, each against its
+    plain version in f32 and beside cuDNN's f32 conv with the same epilogue
+    (TF32 off); G also against the two f32 A launches it replaces."""
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def conv_params(cins, cout):
+        fan_in = 9 * sum(cins)
+        return ([randn(cout, c, 3, 3, std=math.sqrt(2 / fan_in)) for c in cins],
+                0.5 + torch.rand(cout, generator=g, device=dev), randn(cout, std=0.1))
+
+    f32 = torch.float32
+    level0 = [(23,), (64,), (64, 128)]
+    a_cases = ([(8, (256, 256), cins, 64, False, True, " serving") for cins in level0]
+               + [(EVAL_BATCH, (256, 256), cins, 64, False, False, " evaluation U-Net")
+                  for cins in level0]
+               + [(EVAL_BATCH, hw, cins, width, with_add, False, " evaluation U-Net++")
+                  for hw, cins, width, with_add in UNETPP_CONVS]
+               + [(1, (PLANNER_HW, PLANNER_HW), cins, 64, False, False, " planner")
+                  for cins in level0]
+               + [(2, (125, 125), (23, 40), 48, True, False, ""),
+                  (2, (33, 47), (16,), 80, True, False, "")])
+    for b, hw, cins, cout, with_add, on_path, note in a_cases:
+        parts = [randn(b, *hw, c) for c in cins]
+        weights, scale, bias = conv_params(cins, cout)
+        add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
+        kw = dict(scale=scale, bias=bias, add=add, relu=True)
+        prepared = packed_vgg.prepare_conv3x3(weights, scale, bias, f32)
+        label = f"{[(b, *hw, c) for c in cins]}->{cout}{' +add' if with_add else ''}{note}"
+        table.check("conv3x3_fused_f32", label,
+                    lambda: packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True),
+                    lambda: packed_vgg.conv3x3_fused_plain(parts, weights, **kw),
+                    F32_TOL, F32_TOL, on_path, conv_work(b, hw, cins, cout, with_add, "f32"),
+                    cudnn_block(parts, [(weights, scale, bias)], add, f32))
+        if not torch.equal(packed_vgg.conv3x3_fused(parts, weights, **kw),
+                           packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True)):
+            raise AssertionError(f"conv3x3_fused_f32 {label}: prepared and raw weights differ")
+
+    g_cases = ([(8, hw, cins, width, width, with_add, True)
+                for hw, cins, width, with_add in PAIR_BLOCKS]
+               + [(2, (125, 125), (23, 40), 48, 40, True, False),
+                  (2, (33, 47), (16,), 20, 7, True, False)])
+    for b, hw, cins, cmid, cout, with_add, on_path in g_cases:
+        parts = [randn(b, *hw, c) for c in cins]
+        w1, scale1, bias1 = conv_params(cins, cmid)
+        (w2,), scale2, bias2 = conv_params((cmid,), cout)
+        add = randn(b, 3, hw[1], cmid, std=0.5) if with_add else None
+        kw = dict(scale1=scale1, bias1=bias1, scale2=scale2, bias2=bias2, add=add)
+        prepared1 = packed_vgg.prepare_conv3x3(w1, scale1, bias1, f32)
+        prepared2 = packed_vgg.prepare_conv3x3([w2], scale2, bias2, f32)
+
+        def two_launches():
+            mid = packed_vgg.conv3x3_fused(parts, prepared1, add=add, relu=True)
+            return packed_vgg.conv3x3_fused([mid], prepared2, relu=True)
+
+        def pair():
+            return packed_vgg.conv3x3_pair_fused(parts, prepared1, prepared2, add=add)
+
+        n1, f1, _ = conv_work(b, hw, cins, cmid, with_add, "f32")
+        n2, f2, _ = conv_work(b, hw, (cmid,), cout, False, "f32")
+        mid_bytes = 2 * b * hw[0] * hw[1] * cmid * 4     # never written, never read
+        label = (f"{[(b, *hw, c) for c in cins]}->{cmid}->{cout}"
+                 f"{' +add' if with_add else ''}")
+        ms = table.check("conv3x3_pair_fused_f32", label, pair,
+                         lambda: packed_vgg.conv3x3_pair_fused_plain(parts, w1, w2, **kw),
+                         F32_TOL, F32_TOL, on_path, (n1 + n2 - mid_bytes, f1 + f2, "f32"),
+                         cudnn_block(parts, [(w1, scale1, bias1), ([w2], scale2, bias2)], add,
+                                     f32))
+        got, chained = pair(), two_launches()
+        if not torch.equal(packed_vgg.conv3x3_pair_fused(parts, w1, w2, **kw), got):
+            raise AssertionError(f"conv3x3_pair_fused_f32 {label}: prepared and raw weights "
+                                 f"differ")
+        two_ms = cuda_ms(two_launches)
+        diff = (got - chained).abs()
+        ok = bool((diff <= F32_TOL * (1 + chained.abs())).all())
+        print(f"kernel conv3x3_pair_fused_f32 {label} vs two conv3x3_fused_f32 launches: "
+              f"max_abs_diff={float(diff.max()):.3e} (same bits: {torch.equal(got, chained)}) "
+              f"ms={ms:.4f} two_launches_ms={two_ms:.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"conv3x3_pair_fused_f32 {label} disagrees with two launches")
+        if on_path:
+            row = table.rows["conv3x3_pair_fused_f32"]
+            row["two_launches_ms"] = row.get("two_launches_ms", 0.0) + two_ms
+    for name, prefix in (("conv3x3_fused_f32", "conv3x3_f32_kernel"),
+                         ("conv3x3_pair_fused_f32", "conv3x3_pair_f32_kernel")):
+        table.rows[name]["registers"] = {k: v for k, v in registers.items()
+                                         if k.startswith(prefix + "<")}
+        print(f"kernel {name}: ptxas -v {table.rows[name]['registers']}")
+
+
 def check_golden(dev) -> None:
     """The port's U-Net and U-Net++ on the card against the JAX package's
     recorded outputs (``tests/fixtures/golden_unet.npz`` and
-    ``golden_unetpp.npz``: 50² tiles, base 4).  At base 4 every conv runs
-    kernel A, with the embedding term at the U-Net's bottleneck and at every
-    U-Net++ decoder node, and the odd 50 -> 25 -> 12 chain runs C's fix-ups
-    (U-Net) and single odd resizes (U-Net++)."""
+    ``golden_unetpp.npz``: 50² tiles, base 4), in bf16 and in f32.  At base
+    4 every conv runs kernel A (its entry of the compute dtype), with the
+    embedding term at the U-Net's bottleneck and at every U-Net++ decoder
+    node, and the odd 50 -> 25 -> 12 chain runs C's fix-ups (U-Net) and
+    single odd resizes (U-Net++)."""
     from maunet_tpu_torch.interop.from_jax import state_dict_from_jax, variables_from_flat
     from maunet_tpu_torch.interop.torch_import import infer_hyperparams
     from maunet_tpu_torch.models.factory import build_model
@@ -849,15 +1027,23 @@ def check_golden(dev) -> None:
             inputs = [torch.from_numpy(z[k]).to(dev)
                       for k in ("maps", "series", "meta", "lengths")]
             expected = z["expected"]
-        model = build_model(infer_hyperparams(state_dict, {"model_type": model_type}))
-        model.load_state_dict(state_dict, strict=True)
-        with torch.inference_mode():
-            got = model.to(dev)(*inputs).cpu().numpy()
-        err = float(np.abs(got - expected).max())
-        print(f"golden fixture {name} (bf16 on the card vs the f32 JAX output): "
-              f"max_abs_err={err:.4e} tol={GOLDEN_TOL:g}")
-        if got.shape != expected.shape or not err <= GOLDEN_TOL:
-            raise AssertionError(f"the port disagrees with {name}")
+        for dtype, tol, entry in ((torch.bfloat16, GOLDEN_TOL, "conv3x3_fused"),
+                                  (torch.float32, GOLDEN_TOL_F32, "conv3x3_fused_f32")):
+            model = build_model(infer_hyperparams(state_dict, {"model_type": model_type}),
+                                compute_dtype=dtype)
+            model.load_state_dict(state_dict, strict=True)
+            fns = reset_launches()
+            with torch.inference_mode():
+                got = model.to(dev)(*inputs).float().cpu().numpy()
+            launches = {k: fns[k].launches for k in ("conv3x3_fused", "conv3x3_fused_f32")}
+            err = float(np.abs(got - expected).max())
+            kind = str(dtype).split(".")[-1]
+            print(f"golden fixture {name} ({kind} on the card vs the f32 JAX output): "
+                  f"max_abs_err={err:.4e} tol={tol:g}; A launches {launches}")
+            if got.shape != expected.shape or not err <= tol:
+                raise AssertionError(f"the port in {kind} disagrees with {name}")
+            if launches[entry] == 0 or sum(launches.values()) != launches[entry]:
+                raise AssertionError(f"golden fixture {name} in {kind}: A's launches {launches}")
 
 
 def randomize_(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -1038,7 +1224,8 @@ def wrappers() -> dict:
         packed_vgg.conv3x3_fused, lstm.lstm_last_hidden, resize_pack.resize_pack,
         lstm.lstm_forward_stash, lstm.lstm_gate_terms, lstm.lstm_backward, lstm.lstm_dw,
         masked_stats.masked_class_sums, packed_vgg.conv3x3_pair_fused,
-        resize_pack.resize_rows)}
+        resize_pack.resize_rows, packed_vgg.conv3x3_fused_f32,
+        packed_vgg.conv3x3_pair_fused_f32)}
 
 
 def reset_launches() -> dict:
@@ -2512,7 +2699,7 @@ def spatial_path(dev, tmpdir: str, data: str, checkpoint: str, smi: str,
     del model, state, batch
 
     # (d) One Trainer epoch, unsharded here, at TrainConfig's defaults (its
-    # validation runs A, which takes bf16 only).  Three AdamW steps in bf16
+    # validation runs A).  Three AdamW steps in bf16
     # from gradients that any other order of the sums moves by up to 2% of a
     # tensor's largest (profile_port.py --grad-spread): the val losses are
     # held as phase 6 holds a bf16 step's loss, within 1%.
@@ -2664,6 +2851,326 @@ def spatial_path(dev, tmpdir: str, data: str, checkpoint: str, smi: str,
     return spatial_launches
 
 
+# Phase 15, the f32 model paths.  A (its f32 entry), B and C in one f32
+# forward of the serving U-Net (B = 8); G's f32 entry per fuse_pair forward.
+F32_FORWARD_LAUNCHES = {"conv3x3_fused_f32": 4, "conv3x3_fused": 0,
+                        "lstm_last_hidden": 1, "resize_pack": 4}
+# The f32 forwards (kernels against the plain versions, fuse_pair against two
+# launches a block, the spatial bands against the whole image): f32 sums in
+# other orders carried through 18 convs, the LSTM's 828 steps and the
+# decoder: max |diff| <= 1e-3 max(|output|, 1).
+F32_FORWARD_TOL = 1e-3
+# The command line's train in phase 15 (f) and (g): TrainConfig cut to base
+# 16 and a global batch of 8, in f32, on phase 6's data.
+CLI_TRAIN_OVERRIDES = ("training.base_filters=16", "training.batch_size=8",
+                       "training.compute_dtype=float32")
+
+
+class NarrowBlockConvs:
+    """``models/blocks``' ``F`` that records every conv of at most 64
+    outputs run with gradients off (an eval-mode block): those are the convs
+    JAX's kernel computes, and none may go to cuDNN."""
+
+    def __init__(self):
+        self.seen: list[tuple[int, ...]] = []
+
+    def __getattr__(self, name):
+        return getattr(F, name)
+
+    def conv2d(self, x, w, *args, **kwargs):
+        if not torch.is_grad_enabled() and w.shape[0] <= 64:
+            self.seen.append(tuple(w.shape))
+        return F.conv2d(x, w, *args, **kwargs)
+
+
+@contextlib.contextmanager
+def narrow_block_convs():
+    from maunet_tpu_torch.models import blocks
+
+    record = NarrowBlockConvs()
+    with mock.patch.object(blocks, "F", record):
+        yield record.seen
+
+
+def f32_path(dev, tmpdir: str, data: str, checkpoints: dict[str, str],
+             smi: str) -> dict[str, dict[str, int]]:
+    """Phase 15: the f32 model paths, then the command line's train across
+    ranks.  (a) both full-width models' f32 eval forward against the plain
+    versions, and with fuse_pair; (b) ``maunet-torch evaluate --precision
+    float32``; (c) a ``Trainer`` epoch in f32, its validation included; (d)
+    an f32 ``train_fused_conv`` step; (e) the (1, 2) spatial forward in f32
+    on two ranks, with (f) ``cli.main(["train", ...])`` on the same two Gloo
+    ranks; (g) the same command under ``torch.distributed.run
+    --nproc-per-node 1`` and plainly.  Returns the launches of (a)'s U-Net
+    forward and of both fuse_pair forwards."""
+    from maunet_tpu_torch import cli
+    from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
+    from maunet_tpu_torch.data.pipeline import host_tensors, to_device
+    from maunet_tpu_torch.interop.torch_import import load_torch_checkpoint
+    from maunet_tpu_torch.losses import get_loss_fn
+    from maunet_tpu_torch.models import UrbanPredictor
+    from maunet_tpu_torch.models.factory import build_model
+    from maunet_tpu_torch.ops.kernels import lstm, packed_vgg, resize_pack
+    from maunet_tpu_torch.train.config import TrainConfig
+    from maunet_tpu_torch.train.loop import Trainer
+    from maunet_tpu_torch.train.optimizers import make_optimizer
+    from maunet_tpu_torch.train.state import TrainState
+    from maunet_tpu_torch.train.steps import model_outputs, train_step
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    launches: dict[str, dict[str, int]] = {"f32": {}, "f32_pair": {}}
+
+    # (g) started first: two single-process runs of the command line's
+    # train, under torchrun and plainly, beside (a)-(f).
+    head = ["train", "--data-dir", data, "--study-name", "f32", "--n-trials", "1",
+            "--epochs", "1"]
+    overrides = [arg for item in CLI_TRAIN_OVERRIDES for arg in ("-o", item)]
+    argv = [*head, "--device", dev.type, *overrides]
+    runs = {}
+    for name, launcher in (("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                                         "--nproc-per-node", "1", "--master-port",
+                                         str(free_port()), "-m", "maunet_tpu_torch.cli"]),
+                           ("plain", [sys.executable, "-m", "maunet_tpu_torch.cli"])):
+        work = os.path.join(tmpdir, f"f32_cli_{name}")
+        log = open(os.path.join(tmpdir, f"f32_cli_{name}.txt"), "w+")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        runs[name] = (work, log, subprocess.Popen(
+            [*launcher, *argv, "--work-dir", work], stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env))
+
+    # (a) The f32 eval forward of both full-width models on the first 8 test
+    # samples (the batch (e) shards).
+    serve_host = next(make_batches(NpzDataset(os.path.join(data, "test"), T_SERIES), 8))
+    batch_path = os.path.join(tmpdir, "f32_serving.npz")
+    np.savez(batch_path, **serve_host.as_dict())
+    serve_batch = to_device(host_tensors(serve_host, pin=dev.type == "cuda"), dev)
+    for model_type, path in checkpoints.items():
+        state_dict, hp, _ = load_torch_checkpoint(path)
+        models = {}
+        for fuse_pair in (False, True):
+            model = build_model(hp, lstm_mask_mode="batch_max", compute_dtype=f32,
+                                fuse_pair=fuse_pair)
+            model.load_state_dict(state_dict, strict=True)
+            models[fuse_pair] = model.to(dev)
+
+        def forward(fuse_pair):
+            with torch.inference_mode():
+                return model_outputs(models[fuse_pair], serve_batch)
+
+        fns = reset_launches()
+        with narrow_block_convs() as narrow:
+            got = forward(False)
+            torch.cuda.synchronize()
+        single = {name: fn.launches for name, fn in fns.items()}
+        prepared = weights_prepared()
+        forward(False)
+        require_nothing_prepared(prepared, f"f32 forward {model_type}")
+        with mock.patch.object(packed_vgg, "conv3x3_fused", packed_vgg.conv3x3_fused_plain), \
+                mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
+                mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain):
+            want = forward(False)
+        fns = reset_launches()
+        with narrow_block_convs() as narrow_pair:
+            paired = forward(True)
+            torch.cuda.synchronize()
+        pair = {name: fn.launches for name, fn in fns.items()}
+        ms = {fp: cuda_ms(lambda: forward(fp)) for fp in (False, True)}
+        scale = float(want.abs().max())
+        diff, pair_diff = float((got - want).abs().max()), float((paired - got).abs().max())
+        print(f"f32 (a) {model_type} forward (8 x 256², f32, TF32 off): against the plain "
+              f"versions max_abs_diff={diff:.4e}, fuse_pair against two launches a block "
+              f"max_abs_diff={pair_diff:.4e} (same bits: {torch.equal(paired, got)}) on outputs "
+              f"up to {scale:.4f} (tol {F32_FORWARD_TOL * max(scale, 1.0):.2e}); "
+              f"{ms[False]:.3f} ms a forward, {ms[True]:.3f} with fuse_pair (CUDA events, "
+              f"median of 10; {smi}); launches {single}, with fuse_pair {pair}; narrow "
+              f"block convs on cuDNN {len(narrow) + len(narrow_pair)}")
+        tol = F32_FORWARD_TOL * max(scale, 1.0)
+        if (got.dtype != f32 or not bool(torch.isfinite(got).all()) or diff > tol
+                or pair_diff > tol):
+            raise AssertionError(f"f32 (a) {model_type}: the forward disagrees")
+        if narrow or narrow_pair:
+            raise AssertionError(f"f32 (a) {model_type}: convs of <= 64 outputs went to "
+                                 f"cuDNN: {narrow + narrow_pair}")
+        if (single["conv3x3_fused_f32"] == 0 or single["conv3x3_fused"]
+                or pair["conv3x3_pair_fused_f32"] != PAIR_ELIGIBLE[model_type]
+                or pair["conv3x3_pair_fused"]):
+            raise AssertionError(f"f32 (a) {model_type}: launches {single}, {pair}")
+        if model_type == "unet":
+            if any(single[k] != n for k, n in F32_FORWARD_LAUNCHES.items()):
+                raise AssertionError(f"f32 (a): launches {single}, not {F32_FORWARD_LAUNCHES}")
+            launches["f32"] = single
+            unet_f32 = got.cpu()
+        for name, n in pair.items():
+            launches["f32_pair"][name] = launches["f32_pair"].get(name, 0) + n
+        del models
+    del serve_batch
+
+    # (b) The command line's evaluate in f32 on phase 6's split.
+    out_dir = os.path.join(tmpdir, "f32_reports")
+    fns = reset_launches()
+    t0 = time.perf_counter()
+    with narrow_block_convs() as narrow:
+        rc = cli.main(["evaluate", checkpoints["unet"], "--data-dir", data, "--precision",
+                       "float32", "--output-dir", out_dir, "--study-name", "f32",
+                       "--batch-size", str(EVAL_BATCH), "--n-visualize", "0",
+                       "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    evaluated = {name: fn.launches for name, fn in fns.items()}
+    csvs = glob.glob(os.path.join(out_dir, "*_evaluation.csv"))
+    with open(csvs[0] if csvs else os.devnull) as f:
+        rows = list(csv.DictReader(f))
+    overall = [r for r in rows if r["dw_class"] == "overall"]
+    finite = all(math.isfinite(float(r[k])) for r in rows for k in ("mae", "rmse"))
+    print(f"f32 (b) maunet-torch evaluate --precision float32: exit {rc}, {len(rows)} rows "
+          f"in {wall:.1f} s, launches {evaluated}, narrow block convs on cuDNN {len(narrow)}")
+    if rc != 0 or len(overall) != 2 * SAMPLES["test"] or not finite or narrow:
+        raise AssertionError(f"f32 (b): exit {rc}, {len(overall)} overall rows, finite "
+                             f"{finite}, cuDNN convs {narrow}")
+    if 0 in (evaluated["conv3x3_fused_f32"], evaluated["masked_class_sums"]) \
+            or evaluated["conv3x3_fused"]:
+        raise AssertionError(f"f32 (b): launches {evaluated}")
+
+    # (c) A Trainer epoch in f32 at TrainConfig's defaults, its validation
+    # (eval mode, gradients off) on A's f32 entry.
+    cfg = TrainConfig(compute_dtype="float32")
+    fns = reset_launches()
+    t0 = time.perf_counter()
+    with narrow_block_convs() as narrow:
+        result = Trainer(cfg, data, work_dir=os.path.join(tmpdir, "f32_train"),
+                         study_name="f32", device=dev).train(epochs=1)
+    wall = time.perf_counter() - t0
+    trained = {name: fn.launches for name, fn in fns.items()}
+    print(f"f32 (c) Trainer epoch (TrainConfig's defaults in f32, {SAMPLES['train']} + "
+          f"{SAMPLES['val']} samples): val loss {result.best_val_loss:.6f} in {wall:.1f} s, "
+          f"launches {trained}, narrow eval-mode block convs on cuDNN {len(narrow)}")
+    if not math.isfinite(result.best_val_loss) or narrow or trained["conv3x3_fused"] \
+            or trained["conv3x3_fused_f32"] != F32_FORWARD_LAUNCHES["conv3x3_fused_f32"]:
+        raise AssertionError(f"f32 (c): val {result.best_val_loss}, launches {trained}, "
+                             f"cuDNN convs {narrow}")
+
+    # (d) One f32 train step with train_fused_conv against the plain step.
+    batch = to_device(host_tensors(next(make_batches(
+        NpzDataset(os.path.join(data, "train"), T_SERIES), TRAIN_BATCH)), pin=dev.type == "cuda"), dev)
+    kw = dict(model_type=cfg.model_type, out_channels=len(cfg.target_channels),
+              temporal_dim=cfg.temporal_dim, meta_dim=cfg.meta_dim, lstm_dim=cfg.lstm_hidden,
+              base_filters=cfg.base_filters, meta_features=cfg.nb_metadata_features,
+              compute_dtype=f32)
+    weights = UrbanPredictor(**kw, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    steps = {}
+    for fused in (False, True):
+        model = UrbanPredictor(**kw, train_fused_conv=fused)
+        model.load_state_dict(weights)
+        model.to(dev)
+        state = TrainState(model, make_optimizer(model.parameters(), cfg.optimizer,
+                                                 cfg.learning_rate, cfg.weight_decay,
+                                                 cfg.momentum), 0)
+        fns = reset_launches()
+        metrics = train_step(state, batch, get_loss_fn(cfg.loss))
+        torch.cuda.synchronize()
+        steps[fused] = ({k: float(v) for k, v in metrics.items()},
+                        fns["conv3x3_fused_f32"].launches, fns["conv3x3_fused"].launches)
+        del state, model
+    (plain, _, _), (fused_m, a_f32, a_bf16) = steps[False], steps[True]
+    rel_loss = abs(fused_m["total"] - plain["total"]) / abs(plain["total"])
+    rel_norm = abs(fused_m["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
+    print(f"f32 (d) train step with train_fused_conv: loss {fused_m['total']:.8f} (plain "
+          f"{plain['total']:.8f}, rel {rel_loss:.3e}), grad_norm rel {rel_norm:.3e}, A f32 "
+          f"launches {a_f32} (bf16 {a_bf16})")
+    # The same step but for the four level-0 forwards (f32 sums in other
+    # orders): loss within 1e-5, gradient norm within 1e-4, relative.
+    if rel_loss > 1e-5 or rel_norm > 1e-4 or a_f32 != TRAIN_FUSED_LAUNCHES["unet"] or a_bf16:
+        raise AssertionError(f"f32 (d): rel loss {rel_loss}, rel norm {rel_norm}, "
+                             f"launches {a_f32}, {a_bf16}")
+    del batch
+    torch.cuda.empty_cache()
+
+    # (e) and (f) on two Gloo ranks sharing the card: the (1, 2) spatial
+    # forward in f32 of (a)'s U-Net on (a)'s batch, then the command line's
+    # train with --search over the group the workers made.
+    state_path = os.path.join(tmpdir, "f32_serving.pt")
+    torch.save(torch.load(checkpoints["unet"], weights_only=False)["model_state_dict"],
+               state_path)
+    cli_work = os.path.join(tmpdir, "f32_cli_ranks")
+    rank_argv = [*head, "--device", str(dev), *overrides, "--search", "--work-dir", cli_work]
+    t0 = time.perf_counter()
+    out = run_ranks(tmpdir, "f32", [
+        {"kind": "forward", "name": "fwd_f32", "spatial": 2, "state": state_path,
+         "batch": batch_path, "model": {**SERVING_MODEL, "compute_dtype": "float32"}},
+        {"kind": "cli", "name": "cli", "argv": rank_argv}], dev)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"fwd_f32_rank{r}.pt"), weights_only=True)
+             for r in range(DP_RANKS)]
+    bands = ranks[0]["out"]
+    diff = float((bands - unet_f32).abs().max())
+    scale = float(unet_f32.abs().max())
+    print(f"f32 (e) spatial forward (1, 2), f32: gathered bands against (a)'s unsharded "
+          f"forward max_abs_diff={diff:.4e} (same bits: {torch.equal(bands, unet_f32)}, "
+          f"tol {F32_FORWARD_TOL * max(scale, 1.0):.2e}); rank 0's launches "
+          f"{ranks[0]['launches']}")
+    if diff > F32_FORWARD_TOL * max(scale, 1.0) or not bool(torch.isfinite(bands).all()) \
+            or any(not torch.equal(r["out"], bands) for r in ranks[1:]):
+        raise AssertionError("f32 (e): the bands disagree")
+    if any(r["launches"]["conv3x3_fused_f32"] != F32_FORWARD_LAUNCHES["conv3x3_fused_f32"]
+           or r["launches"]["conv3x3_fused"]
+           or r["launches"]["resize_rows"] != 4 for r in ranks):
+        raise AssertionError(f"f32 (e): launches {[r['launches'] for r in ranks]}")
+    clis = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f"cli_rank{r}.json")) as f:
+            clis.append(json.load(f))
+    with open(f"{cli_work}_hpo/f32-emb.json") as f:
+        (trial,) = json.load(f)["trials"]
+    print(f"f32 (f) cli.main(['train', '--search', ...]) on {DP_RANKS} Gloo ranks sharing "
+          f"the card: exits {[c['rc'] for c in clis]}, trial {trial['state']} with "
+          f"{trial['params']}, val {trial['value']}; each rank's trainers "
+          f"{[c['trainers'] for c in clis]}; (e) and (f) {wall:.1f} s")
+    if [c["rc"] for c in clis] != [0] * DP_RANKS or trial["state"] != "COMPLETE" \
+            or any(c["trainers"] != clis[0]["trainers"] for c in clis) \
+            or any(c["histories"] != clis[0]["histories"] for c in clis) \
+            or clis[0]["trainers"][0]["learning_rate"] != float(
+                trial["params"]["learning_rate"]).hex():
+        raise AssertionError(f"f32 (f): {clis}, {trial}")
+
+    # (g) The two single-process runs: the same trial, the same history.
+    values = {}
+    for name, (work, log, proc) in runs.items():
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"f32 (g) {name}: exit {proc.returncode}\n{text[-3000:]}")
+        with open(f"{work}_hpo/f32-emb.json") as f:
+            (t,) = json.load(f)["trials"]
+        values[name] = (t["state"], t["value"], t["intermediate"])
+    (state_t, v_t, hist_t), (state_p, v_p, hist_p) = values["torchrun"], values["plain"]
+    print(f"f32 (g) torch.distributed.run --nproc-per-node 1 -m maunet_tpu_torch.cli train: "
+          f"{state_t}, val {v_t!r}; the plain command: {state_p}, val {v_p!r} (same bits: "
+          f"{v_t == v_p}; history {hist_t} and {hist_p})")
+    # One process each, the same seed and data: the histories agree within
+    # 1e-4 relative (cuDNN's backward in f32 sums in no fixed order).
+    if state_t != "COMPLETE" or state_p != "COMPLETE" or hist_t.keys() != hist_p.keys() \
+            or any(abs(hist_t[k] - hist_p[k]) > 1e-4 * abs(hist_p[k]) for k in hist_p):
+        raise AssertionError(f"f32 (g): {values}")
+    print(f"f32 phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 LSTM_CU = "maunet_tpu_torch/csrc/lstm.cu"
 # name: (source, TPU kernel replaced, the path whose launches the summary gives)
 KERNEL_INFO = {
@@ -2685,6 +3192,10 @@ KERNEL_INFO = {
                           "maunet_tpu/ops/pallas/masked_stats.py:60", "evaluation"),
     "conv3x3_pair_fused": ("maunet_tpu_torch/csrc/conv3x3_pair.cu",
                            "maunet_tpu/ops/pallas/packed_vgg.py:373", "pair"),
+    # A and G in f32 (the TPU kernels compute in the parts' dtype)
+    "conv3x3_fused_f32": (F32_SOURCE, "maunet_tpu/ops/pallas/packed_vgg.py:451", "f32"),
+    "conv3x3_pair_fused_f32": (F32_SOURCE, "maunet_tpu/ops/pallas/packed_vgg.py:373",
+                               "f32_pair"),
 }
 
 
@@ -2707,11 +3218,14 @@ def main() -> int:
     from maunet_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas(F32_SOURCE)
     lib = _build.build()
+    registers = ptxas_registers(ptxas, ("conv3x3_pair_f32_kernel", "conv3x3_f32_kernel"))
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
 
     table = KernelTable()
     check_kernels(table, dev)
+    check_f32_kernels(table, dev, registers)
     check_golden(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         checkpoints = {m: write_checkpoint(tmpdir, m) for m in FULL_WIDTH}
@@ -2729,6 +3243,7 @@ def main() -> int:
         parallel_path(dev, tmpdir, data, checkpoints["unet"], smi[0])
         launches["spatial"] = spatial_path(dev, tmpdir, data, checkpoints["unet"], smi[0],
                                            table)
+        launches.update(f32_path(dev, tmpdir, data, checkpoints, smi[0]))
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[path][name], **table.summary(name)}

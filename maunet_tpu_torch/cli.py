@@ -25,13 +25,24 @@ touches a model takes ``--device`` (``cuda`` unless asked otherwise):
 The configuration is the port's flat ``TrainConfig``.  ``-o section.key=value``
 (the value read by ``ast.literal_eval``, else kept as a string) sets
 ``training.*``, ``dataset.{temporal_length,nb_metadata_features,
-input_channels,target_channels}``, ``logging.{frequency_log,frequency_plt}``
-or ``seed``; any other key raises.  ``--config PATH`` reads the same keys from the JAX
+input_channels,target_channels}``, ``logging.{frequency_log,frequency_plt}``,
+``parallel.{data_parallel,spatial_parallel}`` or ``seed``; any other key
+raises.  ``--config PATH`` reads the same keys from the JAX
 package's YAML layout (PyYAML needed) and, as the JAX loader does, ignores
 the keys it does not know; ``-o`` applies after it.  ``TrainConfig`` holds no
 paths, so ``--data-dir`` is required where the JAX command line falls back
 to ``cfg.paths``; ``process`` and ``process-temperature`` take ``--data-root``
 (default ``data``) and lay their paths out under it as ``cfg.paths`` does.
+
+``train`` runs on every rank of a process group, as JAX's ``cmd_train``
+trains on every device of its mesh: under a launcher that sets
+``WORLD_SIZE`` > 1 (``torchrun --nproc-per-node N -m maunet_tpu_torch.cli
+train ...``) each process joins the group as rank ``RANK`` on
+``cuda:LOCAL_RANK`` (NCCL; Gloo with ``--device cpu``), and where a group is
+already initialised it takes that one.  ``parallel.spatial_parallel`` ranks
+share each image's rows, the rest is the data axis (``parallel.data_parallel``
+-1, or that size).  Rank 0 holds the study: it samples each trial and makes
+each pruning decision, and every rank trains that trial.
 """
 
 from __future__ import annotations
@@ -52,9 +63,7 @@ log = logging.getLogger(__name__)
 _DATASET_KEYS = ("temporal_length", "nb_metadata_features", "input_channels",
                  "target_channels")
 _LOGGING_KEYS = ("frequency_log", "frequency_plt")
-# TrainConfig's mesh sizes: the command line runs one process, so it takes
-# none of them (a data-parallel run starts one process per rank, each calling
-# Trainer itself; README.md).
+# TrainConfig's mesh sizes, JAX's parallel.* keys (config.py:142-150).
 _PARALLEL_KEYS = ("data_parallel", "spatial_parallel")
 _TRAINING_KEYS = tuple(
     f.name for f in dataclasses.fields(TrainConfig)
@@ -70,6 +79,8 @@ def config_field(key: str) -> str | None:
         return name
     if section == "dataset" and name in _DATASET_KEYS:
         return name
+    if section == "parallel" and name in _PARALLEL_KEYS:
+        return name
     if section == "training" and name in _TRAINING_KEYS:
         return name
     return None
@@ -83,8 +94,8 @@ def with_overrides(cfg: TrainConfig, dotted: dict[str, Any]) -> TrainConfig:
         if name is None:
             raise ValueError(
                 f"unknown config key {key!r}: the port's TrainConfig takes training.*, "
-                f"dataset.{{{','.join(_DATASET_KEYS)}}}, logging.{{{','.join(_LOGGING_KEYS)}}} "
-                f"and seed")
+                f"dataset.{{{','.join(_DATASET_KEYS)}}}, logging.{{{','.join(_LOGGING_KEYS)}}}, "
+                f"parallel.{{{','.join(_PARALLEL_KEYS)}}} and seed")
         fields[name] = tuple(value) if isinstance(value, list) else value
     return dataclasses.replace(cfg, **fields)
 
@@ -112,7 +123,7 @@ def yaml_overrides(path: str) -> dict[str, Any]:
     with open(path) as f:
         data = yaml.safe_load(f) or {}
     dotted = {"seed": data["seed"]} if "seed" in data else {}
-    for section in ("training", "dataset", "logging"):
+    for section in ("training", "dataset", "logging", "parallel"):
         for name, value in (data.get(section) or {}).items():
             if config_field(f"{section}.{name}") is not None:
                 dotted[f"{section}.{name}"] = value
@@ -126,7 +137,75 @@ def load_cfg(args) -> TrainConfig:
     return with_overrides(cfg, parse_overrides(getattr(args, "override", None)))
 
 
+def check_mesh_sizes(cfg: TrainConfig, world: int) -> None:
+    """``parallel.*`` against a group of ``world`` ranks; a size that
+    disagrees raises, naming its key."""
+    sp, dp = cfg.spatial_parallel, cfg.data_parallel
+    if sp < 1 or world % sp:
+        raise ValueError(f"parallel.spatial_parallel={sp} does not divide the {world} "
+                         f"rank(s) of the process group")
+    if dp not in (-1, world // sp):
+        raise ValueError(f"parallel.data_parallel={dp}, but {world} rank(s) over "
+                         f"parallel.spatial_parallel={sp} make a data axis of {world // sp} "
+                         f"(-1 takes it)")
+
+
+def join_ranks(cfg: TrainConfig, device: str) -> tuple:
+    """The device this process trains on, and whether it started a process
+    group.  An initialised group is taken as it is (laid out with
+    ``parallel.spatial_parallel``); else, with ``WORLD_SIZE`` > 1 (a launcher
+    such as torchrun), this process joins one as rank ``RANK`` on
+    ``cuda:LOCAL_RANK`` (or the CPU), over ``env://``; else it trains alone."""
+    import torch
+    import torch.distributed as dist
+
+    from maunet_tpu_torch.parallel import multihost
+
+    if dist.is_available() and dist.is_initialized():
+        check_mesh_sizes(cfg, multihost.world_size())
+        if multihost.axes().spatial != cfg.spatial_parallel:
+            multihost.set_spatial_parallel(cfg.spatial_parallel)   # every rank alike
+        return device, False
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    check_mesh_sizes(cfg, world)
+    if world <= 1:
+        return device, False
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    return multihost.initialize_multihost(
+        None, world, int(os.environ["RANK"]), spatial_parallel=cfg.spatial_parallel,
+        device=device), True
+
+
+def rank0_value(value):
+    """Rank 0's ``value`` on every rank (pickled, so a float keeps its
+    bits); ``value`` itself without a group."""
+    from maunet_tpu_torch.parallel.multihost import world_size
+
+    if world_size() == 1:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def every_rank(value) -> list:
+    """Each rank's ``value``, in rank order, on every rank."""
+    from maunet_tpu_torch.parallel.multihost import world_size
+
+    if world_size() == 1:
+        return [value]
+    import torch.distributed as dist
+
+    out = [None] * world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
 def cmd_train(args) -> int:
+    from maunet_tpu_torch.parallel.multihost import rank
     from maunet_tpu_torch.train.hpo import TrialPruned, create_study
     from maunet_tpu_torch.train.loop import Trainer
     from maunet_tpu_torch.utils.tracking import WandbTracker, make_emb_tag
@@ -134,51 +213,91 @@ def cmd_train(args) -> int:
     cfg = dataclasses.replace(load_cfg(args), model_type=args.model_type,
                               temporal_embeddings=args.temporal_embeddings,
                               metadata_embeddings=args.metadata_embeddings)
+    device, started = join_ranks(cfg, args.device)
+    primary = rank() == 0
     emb_tag = make_emb_tag(args.temporal_embeddings, args.metadata_embeddings)
     study_name = args.study_name
     if not args.force_study_name:
         study_name += "-" + emb_tag
 
+    def run_trial(seed_cfg, seed_study, number, overrides, trial):
+        """One trial on this rank, ``trial`` the study's on rank 0 (None on
+        the others).  Every rank learns every rank's outcome before it
+        returns: a trial that failed anywhere fails everywhere."""
+        seed_cfg = with_overrides(seed_cfg, overrides)
+        trackers = []
+        if args.wandb and primary:
+            trackers.append(WandbTracker(
+                project=os.getenv("WANDB_PROJECT"), group=seed_study,
+                name=f"trial-{number}-{emb_tag}", config=dataclasses.asdict(seed_cfg),
+                tags=[seed_study, args.model_type, f"loss_{seed_cfg.loss}"]))
+
+        def on_epoch(epoch, val_loss):
+            prune = False
+            if trial is not None:
+                trial.report(val_loss, epoch)
+                prune = trial.should_prune()
+            if rank0_value(prune):
+                raise TrialPruned()
+
+        status, error, result = "complete", None, None
+        try:
+            trainer = Trainer(seed_cfg, data_dir=args.data_dir, work_dir=args.work_dir,
+                              study_name=seed_study, trial_id=number, device=device,
+                              trackers=trackers, use_mesh=True)
+            result = trainer.train(epochs=args.epochs, epoch_callback=on_epoch,
+                                   resume=args.resume)
+        except TrialPruned:
+            status = "pruned"
+        except Exception as e:   # shared below, then raised again
+            status, error = "failed", e
+        finally:
+            for tracker in trackers:
+                tracker.finish()
+        statuses = every_rank(status)
+        if "failed" in statuses:
+            failed = [r for r, st in enumerate(statuses) if st == "failed"]
+            raise error or RuntimeError(f"trial {number} failed on rank(s) {failed}")
+        if status == "pruned":
+            raise TrialPruned()
+        return result.best_val_loss
+
     seeds = args.seeds or [cfg.seed]
     for seed in seeds:
         seed_cfg = dataclasses.replace(cfg, seed=int(seed))
         seed_study = study_name if len(seeds) == 1 else f"{study_name}-seed{seed}"
+        if not primary:
+            # Rank 0's study runs n_trials trials; each starts with its
+            # number and parameters from there.
+            for _ in range(args.n_trials):
+                number, overrides = rank0_value(None)
+                try:
+                    run_trial(seed_cfg, seed_study, number, overrides, None)
+                except TrialPruned:
+                    pass
+                except Exception as e:
+                    log.error(f"Trial {number} failed: {e!r}")
+            continue
         study = create_study(seed_study, storage_dir=f"{args.work_dir}_hpo")
 
         def objective(trial, seed_cfg=seed_cfg, seed_study=seed_study):
+            overrides = {}
             if args.search:
                 from maunet_tpu_torch.train.hpo import suggest_training_params
 
-                seed_cfg = with_overrides(seed_cfg, suggest_training_params(trial))
+                overrides = suggest_training_params(trial)
                 log.info(f"Trial {trial.number} params: {trial.params}")
-            trackers = []
-            if args.wandb:
-                trackers.append(WandbTracker(
-                    project=os.getenv("WANDB_PROJECT"), group=seed_study,
-                    name=f"trial-{trial.number}-{emb_tag}",
-                    config=dataclasses.asdict(seed_cfg),
-                    tags=[seed_study, args.model_type, f"loss_{seed_cfg.loss}"]))
-            trainer = Trainer(seed_cfg, data_dir=args.data_dir, work_dir=args.work_dir,
-                              study_name=seed_study, trial_id=trial.number,
-                              device=args.device, trackers=trackers)
-
-            def on_epoch(epoch, val_loss):
-                trial.report(val_loss, epoch)
-                if trial.should_prune():
-                    raise TrialPruned()
-
-            try:
-                result = trainer.train(epochs=args.epochs, epoch_callback=on_epoch,
-                                       resume=args.resume)
-            finally:
-                for tracker in trackers:
-                    tracker.finish()
-            return result.best_val_loss
+            rank0_value((trial.number, overrides))
+            return run_trial(seed_cfg, seed_study, trial.number, overrides, trial)
 
         study.optimize(objective, n_trials=args.n_trials)
         best = study.best_trial
         log.info(f"Study {seed_study} finished. Best trial: {best.number} "
                  f"(min val_loss {best.value:.4f})")
+    if started:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -17,7 +17,9 @@ Two structural points carry over from the JAX module:
    is computed in closed form (:func:`const_conv`).
 
 Which convs run the fused kernel is a function of the output width alone
-(:func:`uses_fused_kernel`); in train mode with ``train_fused``, JAX's
+(:func:`uses_fused_kernel`), in either compute dtype: the kernel's bf16
+entry or its f32 one, as JAX's kernel computes in the parts' dtype; in train
+mode with ``train_fused``, JAX's
 ``train_conv.supported`` rule picks them (``ops/train_conv.py``).  In eval
 mode with gradients off, a block keeps what each conv needs beyond its input
 (the BatchNorm affine, and the weights folded and laid out for the fused

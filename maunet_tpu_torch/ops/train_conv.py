@@ -2,16 +2,18 @@
 
 Port of ``maunet_tpu/ops/train_conv.py``.  With ``train_fused_conv`` on, the
 train step's narrow convs run their forward through kernel A
-(``ops/kernels/packed_vgg.conv3x3_fused``, ``csrc/conv3x3_fused.cu``) with no
-epilogue (JAX's ``affine=None, relu=False``), and their backward through the
-library's dgrad and wgrad (``torch.ops.aten.convolution_backward``, cuDNN on
+(``ops/kernels/packed_vgg.conv3x3_fused``: ``csrc/conv3x3_fused.cu`` in
+bf16, ``csrc/conv3x3_f32.cu`` in f32) with no epilogue (JAX's
+``affine=None, relu=False``), and their backward through the library's
+dgrad and wgrad (``torch.ops.aten.convolution_backward``, cuDNN on
 the card), as JAX's ``_conv_vc_bwd`` takes XLA's conv VJP.  Batch-statistics
 BatchNorm then runs on the result as usual (``models/blocks.py``).
 
 Which convs take this path is the JAX package's rule (:func:`supported`), so
 both packages send the same convs through their kernel.  JAX's rule is
 stated on its lane-packed layout; here it is written on the NHWC shapes it
-comes from.  Numerics: the forward sums every part in f32 and rounds once,
+comes from, in either dtype: bf16 parts take A's bf16 entry, f32 parts its
+f32 entry.  Numerics: the forward sums every part in f32 and rounds once,
 as JAX's kernel does; the backward is the library's.
 """
 
@@ -81,13 +83,12 @@ def supported(shapes: Sequence[Sequence[int]], features: int,
 
 def takes_kernel(parts: Sequence[torch.Tensor], features: int,
                  grouped: bool = False, height: int | None = None) -> bool:
-    """:func:`supported`, and what kernel A asks on the card: bf16 parts.  A
-    CPU tensor of any dtype takes the plain version.  ``height``: the whole
-    map's, where ``parts`` are a band of its rows (the spatial mesh axis),
-    which JAX's rule reads."""
+    """:func:`supported`, JAX's rule, which reads no dtype and no device: a
+    CUDA tensor then launches kernel A's entry of its dtype (bf16 or f32; any
+    other raises there), a CPU tensor takes the plain version.  ``height``:
+    the whole map's, where ``parts`` are a band of its rows (the spatial mesh
+    axis), which JAX's rule reads."""
     if not parts or len(parts) > pvgg.MAX_PARTS:
-        return False
-    if parts[0].device.type == "cuda" and any(p.dtype != torch.bfloat16 for p in parts):
         return False
     shapes = [tuple(p.shape) for p in parts]
     if height is not None:

@@ -79,7 +79,7 @@ def test_overrides_map_onto_train_config(parser):
                               compute_dtype="float32")
 
 
-@pytest.mark.parametrize("key", ["parallel.data_parallel", "training.keep_last_checkpoints",
+@pytest.mark.parametrize("key", ["parallel.data_axis", "training.keep_last_checkpoints",
                                  "dataset.tile_size", "training.frequency_plt",
                                  "training.seed", "paths.data_root", "batch_size"])
 def test_unknown_override_raises_naming_the_key(parser, key):
@@ -96,15 +96,16 @@ def test_remat_and_plot_frequency_overrides(parser):
 
 
 def test_yaml_config_and_its_absence(parser, tmp_path, monkeypatch):
-    """--config reads the JAX layout's known keys (others ignored, as the
-    JAX loader does); -o applies after it; without PyYAML it says so."""
+    """--config reads the JAX layout's known keys, parallel.* included
+    (others ignored, as the JAX loader does); -o applies after it; without
+    PyYAML it says so."""
     path = tmp_path / "c.yaml"
     path.write_text("seed: 3\ntraining:\n  batch_size: 2\n  remat: true\n"
                     "dataset:\n  temporal_length: 40\n  tile_size: 128\n"
                     "paths:\n  data_root: x\nparallel:\n  data_parallel: 1\n")
     args = parser.parse_args(["pack", "d", "--config", str(path), "-o", "seed=9"])
     assert cli.load_cfg(args) == TrainConfig(seed=9, batch_size=2, temporal_length=40,
-                                             remat=True)
+                                             remat=True, data_parallel=1)
     monkeypatch.setitem(sys.modules, "yaml", None)
     with pytest.raises(RuntimeError, match="needs PyYAML"):
         cli.load_cfg(args)

@@ -277,10 +277,14 @@ def test_single_process_makes_no_group_and_takes_every_row():
 
 
 def test_config_has_the_parallel_keys_and_the_cli_none():
-    """The command line runs one process: it sets no mesh size."""
+    """The mesh sizes are JAX's parallel.* keys on the command line, and no
+    other section's."""
     cfg = TrainConfig()
     assert (cfg.data_parallel, cfg.spatial_parallel) == (-1, 1)
-    for key in ("parallel.data_parallel", "training.data_parallel",
+    assert cli.with_overrides(cfg, {"parallel.data_parallel": 2,
+                                    "parallel.spatial_parallel": 4}) == TrainConfig(
+        data_parallel=2, spatial_parallel=4)
+    for key in ("parallel.data_axis", "training.data_parallel",
                 "training.spatial_parallel"):
         with pytest.raises(ValueError, match="unknown config key"):
             cli.with_overrides(cfg, {key: 2})

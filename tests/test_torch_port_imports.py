@@ -206,8 +206,14 @@ def test_kernel_branches_marshal_arguments(monkeypatch):
     assert out.shape == (2, 5, 7, 12) and out.dtype == bf
     name, args = calls[-1]
     assert name == "maunet_conv3x3_fused" and args[3] == 2 and args[7:12] == (2, 5, 7, 12, 1)
-    with pytest.raises(ValueError, match="bf16"):
-        packed_vgg.conv3x3_fused([p.float() for p in parts], weights)
+    # f32 parts go to A's f32 entry, with weights prepared in f32, and count
+    # there; a dtype neither entry takes raises, naming it.
+    n_f32 = packed_vgg.conv3x3_fused_f32.launches
+    out = packed_vgg.conv3x3_fused([p.float() for p in parts], weights)
+    assert out.dtype == torch.float32 and calls[-1][0] == "maunet_conv3x3_fused_f32"
+    assert packed_vgg.conv3x3_fused_f32.launches == n_f32 + 1
+    with pytest.raises(ValueError, match="bf16 or f32 parts, got torch.float16"):
+        packed_vgg.conv3x3_fused([p.half() for p in parts], weights)
     with pytest.raises(ValueError, match="does not match"):
         packed_vgg.conv3x3_fused(parts, weights[::-1])
 

@@ -17,9 +17,11 @@ import torch
 from maunet_tpu_torch.models import blocks
 from maunet_tpu_torch.ops.kernels import packed_vgg as pvgg
 
-# The kernel's constants (csrc/conv_tile.cuh: BK; conv3x3_fused.cu: the 64- and
-# 32-wide instantiations), written out a second time on purpose.
+# The kernels' constants (csrc/conv_tile.cuh: BK; conv3x3_fused.cu: the 64- and
+# 32-wide instantiations; conv3x3_f32.cu: BK), written out a second time on
+# purpose.
 BK = 32
+BK_F32 = 16
 
 
 def _read_like_the_kernel(packed: np.ndarray, cins, cout: int) -> list[np.ndarray]:
@@ -61,6 +63,37 @@ def _read_like_the_kernel(packed: np.ndarray, cins, cout: int) -> list[np.ndarra
     return out
 
 
+def _read_like_the_f32_kernel(packed: np.ndarray, cins, cout: int) -> list[np.ndarray]:
+    """As :func:`_read_like_the_kernel`, for the f32 kernel
+    (``csrc/conv3x3_f32.cu``): for output-channel tile ``nbase`` (BN = 64,
+    or 32 for a last tile of at most 32 channels) and K step ``step`` (part
+    by part, 16 channels each) it copies ``9 * 16 * BN`` elements from
+    ``slab + step * 9 * 16 * BN`` and multiplies channel ``k`` of tap ``tap``
+    into output ``n`` with element ``(tap * 16 + k) * BN + n`` of them."""
+    steps = sum(-(-c // BK_F32) for c in cins)
+    out = [np.zeros((cout, c, 3, 3), packed.dtype) for c in cins]
+    slab = 0
+    for nbase in range(0, cout, 64):
+        bn = 64 if cout - nbase > 32 else 32
+        step = 0
+        for wt, cin in zip(out, cins):
+            for c0 in range(0, cin, BK_F32):
+                stage = slab + step * 9 * BK_F32 * bn
+                for tap in range(9):
+                    for k in range(BK_F32):
+                        for n in range(bn):
+                            v = packed[stage + (tap * BK_F32 + k) * bn + n]
+                            if nbase + n < cout and c0 + k < cin:
+                                wt[nbase + n, c0 + k, tap // 3, tap % 3] = v
+                            else:
+                                assert v == 0, (nbase, step, tap, k, n)
+                step += 1
+        assert step == steps
+        slab += steps * 9 * BK_F32 * bn
+    assert slab == packed.size
+    return out
+
+
 def _case(seed, b, h, w, cins, cout, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)
     parts = [torch.randn((b, h, w, c), generator=g).to(dtype) for c in cins]
@@ -79,9 +112,10 @@ def test_prepared_layout_read_like_the_kernel_f32(b, h, w, cins, cout):
     parts, weights, scale, bias, add = _case(0, b, h, w, cins, cout)
     prepared = pvgg.prepare_conv3x3(weights, scale, bias, torch.float32)
     assert prepared.cins == cins and prepared.cout == cout
+    assert prepared.layout == pvgg.FFMA and prepared.packed.dtype == torch.float32
     assert pvgg.output_tiles(cout) == [(n, 64 if cout - n > 32 else 32)
                                        for n in range(0, cout, 64)]
-    read = _read_like_the_kernel(prepared.packed.numpy(), cins, cout)
+    read = _read_like_the_f32_kernel(prepared.packed.numpy(), cins, cout)
     want = pvgg.conv3x3_fused_plain(parts, weights, scale=scale, bias=bias, add=add, relu=True)
     # The weights read back, with the scale already in them: only add and bias remain.
     got = pvgg.conv3x3_fused_plain(parts, [torch.from_numpy(r) for r in read],

@@ -2,8 +2,9 @@
 
     python tests/torch_multihost_worker.py SPEC.json RANK
 
-Started once per rank by ``tests/test_torch_parallel_train.py`` and
-``tests/test_torch_parallel_spatial.py`` (on the CPU, Gloo) and by
+Started once per rank by ``tests/test_torch_parallel_train.py``,
+``tests/test_torch_parallel_spatial.py`` and ``tests/test_torch_cli_ranks.py``
+(on the CPU, Gloo) and by
 ``chip_smoke.py`` (two or four ranks sharing one card, Gloo).  It imports no
 JAX, so it runs where JAX is not installed.  The ranks join
 ``SPEC["store"]`` (a ``file://`` URL) through ``initialize_multihost`` and
@@ -37,7 +38,13 @@ image rows.
   again; writes ``<name>_rank<r>.json`` (JAX ``tests/multihost_worker.py``
   records the same);
 - ``resume``: the flips each rank draws in two epochs run through, and in
-  one epoch and a resumed second; writes ``<name>_rank<r>.json``.
+  one epoch and a resumed second; writes ``<name>_rank<r>.json``;
+- ``cli``: ``cli.main(argv)`` (``maunet-torch train`` on the group this
+  worker made), recording each ``Trainer`` it builds (the trial's learning
+  rate and weight decay as ``float.hex``, its optimizer) and the history
+  each trains; then, with ``direct_work``, a ``Trainer`` built directly with
+  the last recorded configuration trains as many epochs; writes
+  ``<name>_rank<r>.json``.
 
 The launches each kernel wrapper counted in a task go to
 ``<name>_rank<r>.launches.json``.  TF32 is off, so a CUDA rank computes in
@@ -72,7 +79,8 @@ def _launch_counts() -> dict[str, int]:
     from maunet_tpu_torch.ops.kernels import lstm, masked_stats, packed_vgg, resize_pack
 
     return {fn.__name__: fn.launches for fn in (
-        packed_vgg.conv3x3_fused, packed_vgg.conv3x3_pair_fused, lstm.lstm_last_hidden,
+        packed_vgg.conv3x3_fused, packed_vgg.conv3x3_pair_fused,
+        packed_vgg.conv3x3_fused_f32, packed_vgg.conv3x3_pair_fused_f32, lstm.lstm_last_hidden,
         lstm.lstm_forward_stash, lstm.lstm_gate_terms, lstm.lstm_backward, lstm.lstm_dw,
         resize_pack.resize_pack, resize_pack.resize_rows, masked_stats.masked_class_sums)}
 
@@ -266,6 +274,40 @@ def resume_task(task: dict, device: torch.device, rank: int, out: str) -> None:
         json.dump({"rank": rank, **runs}, f)
 
 
+def cli_task(task: dict, device: torch.device, rank: int, out: str) -> None:
+    from maunet_tpu_torch import cli
+    from maunet_tpu_torch.train import loop
+
+    built, histories = [], []
+    init, train = loop.Trainer.__init__, loop.Trainer.train
+
+    def recording_init(self, cfg, *args, **kwargs):
+        built.append((cfg, kwargs.get("trial_id")))
+        init(self, cfg, *args, **kwargs)
+
+    def recording_train(self, *args, **kwargs):
+        result = train(self, *args, **kwargs)
+        histories.append(result.history)
+        return result
+
+    loop.Trainer.__init__, loop.Trainer.train = recording_init, recording_train
+    try:
+        rc = cli.main(task["argv"])
+    finally:
+        loop.Trainer.__init__, loop.Trainer.train = init, train
+    direct = None
+    if task.get("direct_work"):
+        cfg = built[-1][0]
+        direct = loop.Trainer(cfg, task["data"], work_dir=task["direct_work"],
+                              study_name="direct", device=device).train(
+                                  epochs=task["epochs"]).history
+    with open(os.path.join(out, f"{task['name']}_rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "rc": rc, "histories": histories, "direct": direct,
+                   "trainers": [{"trial_id": trial, "learning_rate": cfg.learning_rate.hex(),
+                                 "weight_decay": cfg.weight_decay.hex(),
+                                 "optimizer": cfg.optimizer} for cfg, trial in built]}, f)
+
+
 def _peek(rng: np.random.Generator) -> float:
     """The next draw of ``rng``, without moving it."""
     probe = np.random.Generator(type(rng.bit_generator)())
@@ -274,7 +316,7 @@ def _peek(rng: np.random.Generator) -> float:
 
 
 TASKS = {"step": step_task, "forward": forward_task, "epoch": epoch_task,
-         "resume": resume_task}
+         "resume": resume_task, "cli": cli_task}
 
 
 def main() -> None:
