@@ -48,7 +48,8 @@ Phases, one output line each (or a few for the kernel table):
    sizes, G at the eleven pair blocks (B = 8) and two odd sizes, each
    against its plain version in f32 and beside cuDNN's f32 conv with the
    same epilogue (TF32 off), G also against the two f32 A launches it
-   replaces; ``nvcc -Xptxas -v`` on that source, run beside the build, gives
+   replaces, whose bits it must give (both sum each output in one order);
+   ``nvcc -Xptxas -v`` on that source, run beside the build, gives
    each f32 instantiation's registers and spills for their rows;
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
    and ``golden_unetpp.npz`` run on the card in bf16 and in f32 (A's entry
@@ -877,6 +878,26 @@ F32_SOURCE = "maunet_tpu_torch/csrc/conv3x3_f32.cu"
 # |kernel - plain| <= F32_TOL (1 + |plain|).  Both sum up to 9 x 192 f32
 # products per output, in other orders where cuDNN splits the sum.
 F32_TOL = 1e-5
+# Phase 3's shapes of A in f32: (batch, (H, W), the parts' channels, cout,
+# with add, on the path, note): the serving batch's three level-0 convs, the
+# evaluation batch's of both models, the planner's at B = 1, and two odd ones.
+F32_LEVEL0 = ((23,), (64,), (64, 128))
+F32_A_CASES = tuple(
+    [(8, (256, 256), cins, 64, False, True, " serving") for cins in F32_LEVEL0]
+    + [(EVAL_BATCH, (256, 256), cins, 64, False, False, " evaluation U-Net")
+       for cins in F32_LEVEL0]
+    + [(EVAL_BATCH, hw, cins, width, with_add, False, " evaluation U-Net++")
+       for hw, cins, width, with_add in UNETPP_CONVS]
+    + [(1, (PLANNER_HW, PLANNER_HW), cins, 64, False, False, " planner")
+       for cins in F32_LEVEL0]
+    + [(2, (125, 125), (23, 40), 48, True, False, ""),
+       (2, (33, 47), (16,), 80, True, False, "")])
+# ... and of G: (batch, (H, W), conv1's parts' channels, cmid, cout, with add,
+# on the path): the pair configuration's blocks at B = 8, and two odd ones.
+F32_G_CASES = tuple(
+    [(8, hw, cins, width, width, with_add, True) for hw, cins, width, with_add in PAIR_BLOCKS]
+    + [(2, (125, 125), (23, 40), 48, 40, True, False),
+       (2, (33, 47), (16,), 20, 7, True, False)])
 
 
 def start_ptxas(source: str) -> subprocess.Popen:
@@ -931,17 +952,7 @@ def check_f32_kernels(table: KernelTable, dev, registers: dict[str, str]) -> Non
                 0.5 + torch.rand(cout, generator=g, device=dev), randn(cout, std=0.1))
 
     f32 = torch.float32
-    level0 = [(23,), (64,), (64, 128)]
-    a_cases = ([(8, (256, 256), cins, 64, False, True, " serving") for cins in level0]
-               + [(EVAL_BATCH, (256, 256), cins, 64, False, False, " evaluation U-Net")
-                  for cins in level0]
-               + [(EVAL_BATCH, hw, cins, width, with_add, False, " evaluation U-Net++")
-                  for hw, cins, width, with_add in UNETPP_CONVS]
-               + [(1, (PLANNER_HW, PLANNER_HW), cins, 64, False, False, " planner")
-                  for cins in level0]
-               + [(2, (125, 125), (23, 40), 48, True, False, ""),
-                  (2, (33, 47), (16,), 80, True, False, "")])
-    for b, hw, cins, cout, with_add, on_path, note in a_cases:
+    for b, hw, cins, cout, with_add, on_path, note in F32_A_CASES:
         parts = [randn(b, *hw, c) for c in cins]
         weights, scale, bias = conv_params(cins, cout)
         add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
@@ -957,11 +968,7 @@ def check_f32_kernels(table: KernelTable, dev, registers: dict[str, str]) -> Non
                            packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True)):
             raise AssertionError(f"conv3x3_fused_f32 {label}: prepared and raw weights differ")
 
-    g_cases = ([(8, hw, cins, width, width, with_add, True)
-                for hw, cins, width, with_add in PAIR_BLOCKS]
-               + [(2, (125, 125), (23, 40), 48, 40, True, False),
-                  (2, (33, 47), (16,), 20, 7, True, False)])
-    for b, hw, cins, cmid, cout, with_add, on_path in g_cases:
+    for b, hw, cins, cmid, cout, with_add, on_path in F32_G_CASES:
         parts = [randn(b, *hw, c) for c in cins]
         w1, scale1, bias1 = conv_params(cins, cmid)
         (w2,), scale2, bias2 = conv_params((cmid,), cout)
@@ -992,13 +999,14 @@ def check_f32_kernels(table: KernelTable, dev, registers: dict[str, str]) -> Non
             raise AssertionError(f"conv3x3_pair_fused_f32 {label}: prepared and raw weights "
                                  f"differ")
         two_ms = cuda_ms(two_launches)
-        diff = (got - chained).abs()
-        ok = bool((diff <= F32_TOL * (1 + chained.abs())).all())
+        # Both sum each output in one order (part, channel, tap), so G gives
+        # the two launches' bits.
+        ok = torch.equal(got, chained)
         print(f"kernel conv3x3_pair_fused_f32 {label} vs two conv3x3_fused_f32 launches: "
-              f"max_abs_diff={float(diff.max()):.3e} (same bits: {torch.equal(got, chained)}) "
+              f"max_abs_diff={float((got - chained).abs().max()):.3e} same bits: {ok} "
               f"ms={ms:.4f} two_launches_ms={two_ms:.4f} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"conv3x3_pair_fused_f32 {label} disagrees with two launches")
+            raise AssertionError(f"conv3x3_pair_fused_f32 {label}: not the two launches' bits")
         if on_path:
             row = table.rows["conv3x3_pair_fused_f32"]
             row["two_launches_ms"] = row.get("two_launches_ms", 0.0) + two_ms

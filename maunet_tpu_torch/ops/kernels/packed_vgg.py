@@ -73,7 +73,7 @@ def expand_add(add: torch.Tensor, h: int) -> torch.Tensor:
 # TILE_K_F32 channels.
 TILE_K = 32
 TILE_N = 64
-TILE_K_F32 = 16
+TILE_K_F32 = 8
 # The two layouts: wgmma's core matrices (bf16, and any dtype but f32 on the
 # CPU) and the f32 kernels' [tap][channel][output] slabs.
 WGMMA, FFMA = "wgmma", "ffma"

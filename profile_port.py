@@ -12,6 +12,7 @@ their sums (one process, cuDNN or not, two ranks data- or spatial-parallel;
     python3 profile_port.py --train [--trace PATH]   # default build/port_train_trace.json
     python3 profile_port.py --eval [--trace PATH]    # default build/port_eval_trace.json
     python3 profile_port.py --conv                   # no trace
+    python3 profile_port.py --conv --f32 [--parent PATH ...]  # no trace; PATH: other conv3x3_f32.cu files
     python3 profile_port.py --lstm [--parent PATH ...]   # no trace; PATH: other lstm.cu files
     python3 profile_port.py --resize [--parent PATH]     # no trace; PATH: another resize_pack.cu
     python3 profile_port.py --masked [--parent PATH ...] # no trace; PATH: other masked_stats.cu files
@@ -58,6 +59,28 @@ three level-0 convs (B=8) and at every distinct conv of an evaluation batch
 events around single calls, median of 10), on the device (events around ten
 calls back to back), with raw weights, beside cuDNN's conv with the same
 epilogue and the bound (``chip_smoke.cudnn_block``, ``conv_work``).
+
+The ``--conv --f32`` mode takes A's and G's f32 entries
+(``csrc/conv3x3_f32.cu``) instead: it compiles that file alone with
+``-Xptxas -v`` and prints each instantiation's registers and spills; holds
+A at every f32 shape of ``chip_smoke.py``'s phase 3 (``F32_A_CASES``: the
+serving, evaluation and planner convs and two odd ones) and G at its blocks
+(``F32_G_CASES``: the pair configuration's eleven and two odd ones) against
+the plain version (``chip_smoke.F32_TOL``); and times each beside cuDNN's
+f32 conv with the same epilogue (TF32 off, ``chip_smoke.cudnn_block``) and
+the bound, G also beside the two A launches it replaces (CUDA events around
+ten calls back to back, median of 5, so the wrappers' host time stays behind
+the device's), with sums per group.  With ``--parent PATH
+...``, other ``conv3x3_f32.cu`` files, each built into a library of its own
+and called with the arguments its entry points name, with weights prepared
+at the file's own K step (its ``constexpr int BK``), must give the tree's
+bits or are listed where they do not, and are timed in turns with the tree
+(the parents in order, the tree twice, the parents in reverse).  To compare
+with the last commit, write its file first: ``git show
+HEAD:maunet_tpu_torch/csrc/conv3x3_f32.cu > build/conv3x3_f32_parent.cu``.
+Where ``ncu`` is on the machine it also profiles A once at the serving
+batch's 64 -> 64 conv for its shared-memory wavefronts per FFMA and its
+stall reasons.
 
 The ``--lstm`` mode compiles ``csrc/lstm.cu`` alone with ``-Xptxas -v`` and
 prints each kernel's registers and spills; holds B (``lstm_last_hidden``), E
@@ -132,7 +155,10 @@ the sum over rows exceeds the busy time.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
+import shutil
 import os
 import re
 import statistics
@@ -651,6 +677,11 @@ def resize_arguments(params: list[tuple[str, bool]], x: torch.Tensor, y: torch.T
     return named_arguments("maunet_resize_align_corners", params, values)
 
 
+# Each parent file's library, by (path, stem): built once, however many of
+# its entry points are asked for.
+_PARENT_LIBRARIES: dict = {}
+
+
 def parent_entry(path: str, entry: str, stem: str | None = None):
     """Compile ``path``, another version of a ``csrc`` source, into a
     library of its own (named by ``stem``, by default the file's) and return
@@ -664,12 +695,15 @@ def parent_entry(path: str, entry: str, stem: str | None = None):
     with open(path) as f:
         params = entry_params(f.read(), entry)
     stem = stem or os.path.splitext(os.path.basename(path))[0]
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"parent_{stem}")
-    os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, f"libparent_{stem}.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", path, "-o", lib_path],
-                   check=True)
-    fn = getattr(ctypes.CDLL(lib_path, mode=os.RTLD_LOCAL), entry)
+    if (path, stem) not in _PARENT_LIBRARIES:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                               f"parent_{stem}")
+        os.makedirs(out_dir, exist_ok=True)
+        lib_path = os.path.join(out_dir, f"libparent_{stem}.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", path, "-o", lib_path],
+                       check=True)
+        _PARENT_LIBRARIES[(path, stem)] = ctypes.CDLL(lib_path, mode=os.RTLD_LOCAL)
+    fn = getattr(_PARENT_LIBRARIES[(path, stem)], entry)
     fn.argtypes = [kind for _, kind in params]
     fn.restype = ctypes.c_int
     return fn, params
@@ -1150,6 +1184,256 @@ def grad_spread(dev) -> None:
         torch.backends.cudnn.enabled = True
 
 
+# --conv --f32: the f32 entries of A and G, and their kernels.
+F32_ENTRIES = ("maunet_conv3x3_fused_f32", "maunet_conv3x3_pair_f32")
+
+
+def f32_kernel_label(entry: str) -> str:
+    """``conv3x3_f32_kernel<...>`` or ``conv3x3_pair_f32_kernel<...>`` with
+    its integer template arguments, from its mangled name."""
+    m = re.search(r"(conv3x3_(?:pair_)?f32_kernel)I((?:Li\d+E)+)", entry)
+    if not m:
+        return entry
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def f32_k_width(source: str) -> int:
+    """The input channels of one K step (``constexpr int BK``) of a
+    ``conv3x3_f32.cu`` source: the width its prepared weights are laid out
+    for."""
+    m = re.search(r"constexpr int BK = (\d+);", source)
+    if not m:
+        raise ValueError("no `constexpr int BK = N;` in the source")
+    return int(m.group(1))
+
+
+@contextlib.contextmanager
+def f32_tile_k(width: int):
+    """``prepare_conv3x3`` lays f32 weights out for K steps of ``width``
+    channels while the block runs."""
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    saved = packed_vgg.TILE_K_F32
+    packed_vgg.TILE_K_F32 = width
+    try:
+        yield
+    finally:
+        packed_vgg.TILE_K_F32 = saved
+
+
+def f32_arguments(entry: str, params, parts, prepared, out, add, stream: int,
+                  prepared2=None) -> tuple[list, list]:
+    """The values for ``params`` (``entry_params`` of ``entry``: A's or G's
+    f32 entry) of one launch on ``parts`` into ``out``, and the host arrays
+    they point to, which must outlive the call."""
+    xs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+    cins = (ctypes.c_int * len(parts))(*prepared.cins)
+    b, h, w, _ = parts[0].shape
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    values = {"xs": ctypes.addressof(xs), "cins": ctypes.addressof(cins),
+              "nparts": len(parts), "add": ptr(add), "out": out.data_ptr(), "B": b, "H": h,
+              "W": w, "cout": out.shape[3], "stream": stream}
+    if prepared2 is None:
+        values.update(wpk=prepared.packed.data_ptr(), bias=ptr(prepared.bias), relu=1,
+                      scale=ptr(prepared.scale))
+    else:
+        values.update(w1pk=prepared.packed.data_ptr(), w2pk=prepared2.packed.data_ptr(),
+                      bias1=ptr(prepared.bias), bias2=ptr(prepared2.bias),
+                      cmid=prepared.cout, scale1=ptr(prepared.scale))
+    return named_arguments(entry, params, values), [xs, cins]
+
+
+class ParentF32:
+    """Another ``conv3x3_f32.cu``, built into a library of its own: its A
+    and G entries on weights prepared at its own K step."""
+
+    def __init__(self, path: str, name: str):
+        with open(path) as f:
+            source = f.read()
+        self.width = f32_k_width(source)
+        self.fns = {}
+        for entry in F32_ENTRIES:
+            self.fns[entry] = parent_entry(path, entry, name)
+
+    def prepare(self, weights, scale, bias):
+        from maunet_tpu_torch.ops.kernels import packed_vgg
+
+        with f32_tile_k(self.width):
+            return packed_vgg.prepare_conv3x3(weights, scale, bias, torch.float32)
+
+    def _launch(self, entry, parts, prepared, add, cout, prepared2=None):
+        from maunet_tpu_torch.ops.kernels import _build
+
+        fn, params = self.fns[entry]
+        out = torch.empty((*parts[0].shape[:3], cout), dtype=torch.float32,
+                          device=parts[0].device)
+        args, _keep = f32_arguments(entry, params, parts, prepared, out, add,
+                                    _build.stream_of(out), prepared2)
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(f"parent {entry}: CUDA error {code}")
+        return out
+
+    def fused(self, parts, prepared, add):
+        return self._launch(F32_ENTRIES[0], parts, prepared, add, prepared.cout)
+
+    def pair(self, parts, prepared1, prepared2, add):
+        return self._launch(F32_ENTRIES[1], parts, prepared1, add, prepared2.cout, prepared2)
+
+
+def ncu_f32_report() -> None:
+    """Where ``ncu`` exists: A's shared-memory wavefronts per FFMA and its
+    stall reasons at the serving batch's 64 -> 64 conv."""
+    ncu = shutil.which("ncu")
+    print(f"ncu: {ncu or 'not on this machine; no wavefront count or stall reasons'}")
+    if not ncu:
+        return
+    script = ("import torch; from maunet_tpu_torch.ops.kernels import packed_vgg as p; "
+              "x = torch.randn(8, 256, 256, 64, device='cuda'); "
+              "w = p.prepare_conv3x3([torch.randn(64, 64, 3, 3, device='cuda') * 0.05], "
+              "dtype=torch.float32); p.conv3x3_fused([x], w, relu=True); "
+              "torch.cuda.synchronize()")
+    metrics = ("l1tex__data_pipe_lsu_wavefronts_mem_shared_op_ld.sum,"
+               "smsp__sass_thread_inst_executed_op_ffma_pred_on.sum,"
+               "smsp__inst_executed_op_shared_ld.sum,"
+               "smsp__average_warp_latency_issue_stalled_barrier.ratio,"
+               "smsp__average_warp_latency_issue_stalled_short_scoreboard.ratio,"
+               "smsp__average_warp_latency_issue_stalled_mio_throttle.ratio,"
+               "smsp__average_warp_latency_issue_stalled_long_scoreboard.ratio,"
+               "smsp__average_warp_latency_issue_stalled_math_pipe_throttle.ratio")
+    run = subprocess.run([ncu, "--kernel-name", "regex:conv3x3_f32_kernel", "--metrics",
+                          metrics, sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    print(f"ncu exit {run.returncode}:\n" + "\n".join((run.stdout + run.stderr).splitlines()[-24:]))
+
+
+def conv_f32_profile(dev: torch.device, parent_paths: list[str] | None) -> None:
+    """``--conv --f32``: A and G in f32: registers, agreement with the plain
+    version and with each parent, times."""
+    import math
+
+    import chip_smoke as cs
+
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    ptxas_report("conv3x3_f32.cu", f32_kernel_label)
+    ncu_f32_report()
+    paths = parent_paths or []
+    parents = {n: ParentF32(p, n) for n, p in zip(parent_names(paths), paths)}
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 16)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def conv_params(cins, cout):
+        return ([randn(cout, c, 3, 3, std=math.sqrt(2 / (9 * sum(cins)))) for c in cins],
+                0.5 + torch.rand(cout, generator=g, device=dev), randn(cout, std=0.1))
+
+    differ: list[str] = []
+    sums: dict[str, dict[str, float]] = {}
+
+    def timed(kind, group, label, tree, plain, by_parent, cudnn, bound, extra=None):
+        """Check ``tree()`` against ``plain()`` and each parent's call, then
+        time them in turns; print one line and add it to its group's sums."""
+        got, want = tree(), plain()
+        diff = (got - want).abs()
+        if not (bool(torch.isfinite(got).all())
+                and bool((diff <= cs.F32_TOL * (1 + want.abs())).all())):
+            raise AssertionError(f"{kind} {label}: disagrees with its plain version")
+        bits = []
+        for name, call in by_parent.items():
+            same = torch.equal(call(), got)
+            bits.append(f"{name} {'same bits' if same else 'DIFFERENT BITS'}")
+            if not same:
+                differ.append(f"{kind} {label} ({name})")
+        order = list(by_parent) + ["tree", "tree"] + list(reversed(by_parent))
+        calls = {**by_parent, "tree": tree}
+        times: dict[str, list[float]] = {}
+        for name in order:
+            times.setdefault(name, []).append(device_ms(calls[name]))
+        row = {name: statistics.mean(v) for name, v in times.items()}
+        row["cuDNN f32"] = device_ms(cudnn)
+        row["bound"] = bound
+        if extra:
+            row.update({name: device_ms(fn) for name, fn in extra.items()})
+        print(f"{kind} {group} {label}: max_abs_err={float(diff.max()):.3e} "
+              + " ".join(f"{k}={v:.4f}" for k, v in row.items())
+              + (f" ms; {', '.join(bits)}" if bits else " ms"))
+        total = sums.setdefault(f"{kind} {group}", {})
+        for k, v in row.items():
+            total[k] = total.get(k, 0.0) + v
+
+    for b, hw, cins, cout, with_add, _, note in cs.F32_A_CASES:
+        parts = [randn(b, *hw, c) for c in cins]
+        weights, scale, bias = conv_params(cins, cout)
+        add = randn(b, 3, hw[1], cout, std=0.5) if with_add else None
+        prepared = packed_vgg.prepare_conv3x3(weights, scale, bias, f32)
+        by_parent = {}
+        for name, parent in parents.items():
+            pp = parent.prepare(weights, scale, bias)
+            by_parent[name] = (lambda parent=parent, pp=pp:
+                               parent.fused(parts, pp, add))
+        nbytes, flops, _ = cs.conv_work(b, hw, cins, cout, with_add, "f32")
+        timed("A", note.strip() or "odd", f"{[(b, *hw, c) for c in cins]}->{cout}",
+              lambda: packed_vgg.conv3x3_fused(parts, prepared, add=add, relu=True),
+              lambda: packed_vgg.conv3x3_fused_plain(parts, weights, scale=scale, bias=bias,
+                                                     add=add, relu=True),
+              by_parent, cs.cudnn_block(parts, [(weights, scale, bias)], add, f32),
+              max(nbytes / cs.HBM_BYTES_PER_S, flops / cs.PEAK_FLOPS["f32"]) * 1e3)
+        del parts, add
+        torch.cuda.empty_cache()
+
+    for b, hw, cins, cmid, cout, with_add, on_path in cs.F32_G_CASES:
+        parts = [randn(b, *hw, c) for c in cins]
+        w1, scale1, bias1 = conv_params(cins, cmid)
+        (w2,), scale2, bias2 = conv_params((cmid,), cout)
+        add = randn(b, 3, hw[1], cmid, std=0.5) if with_add else None
+        p1 = packed_vgg.prepare_conv3x3(w1, scale1, bias1, f32)
+        p2 = packed_vgg.prepare_conv3x3([w2], scale2, bias2, f32)
+        by_parent = {}
+        for name, parent in parents.items():
+            pp1, pp2 = parent.prepare(w1, scale1, bias1), parent.prepare([w2], scale2, bias2)
+            by_parent[name] = (lambda parent=parent, pp1=pp1, pp2=pp2:
+                               parent.pair(parts, pp1, pp2, add))
+
+        def two_launches():
+            mid = packed_vgg.conv3x3_fused(parts, p1, add=add, relu=True)
+            return packed_vgg.conv3x3_fused([mid], p2, relu=True)
+
+        n1, f1, _ = cs.conv_work(b, hw, cins, cmid, with_add, "f32")
+        n2, f2, _ = cs.conv_work(b, hw, (cmid,), cout, False, "f32")
+        nbytes = n1 + n2 - 2 * b * hw[0] * hw[1] * cmid * 4
+        tree = lambda: packed_vgg.conv3x3_pair_fused(parts, p1, p2, add=add)  # noqa: E731
+        if not torch.equal(tree(), two_launches()):
+            differ.append(f"G {[(b, *hw, c) for c in cins]}->{cmid}->{cout} "
+                          f"(two A launches)")
+        timed("G", "pair blocks" if on_path else "odd",
+              f"{[(b, *hw, c) for c in cins]}->{cmid}->{cout}", tree,
+              lambda: packed_vgg.conv3x3_pair_fused_plain(
+                  parts, w1, w2, scale1=scale1, bias1=bias1, scale2=scale2, bias2=bias2,
+                  add=add),
+              by_parent,
+              cs.cudnn_block(parts, [(w1, scale1, bias1), ([w2], scale2, bias2)], add, f32),
+              max(nbytes / cs.HBM_BYTES_PER_S, (f1 + f2) / cs.PEAK_FLOPS["f32"]) * 1e3,
+              {"two A launches": two_launches})
+        del parts, add
+        torch.cuda.empty_cache()
+
+    for group, row in sums.items():
+        print(f"sum {group}: " + " ".join(f"{k}={v:.4f}" for k, v in row.items()) + " ms")
+    n = len(cs.F32_A_CASES) + len(cs.F32_G_CASES)
+    if differ:
+        print(f"bits: {len(differ)} differ: " + "; ".join(differ))
+    else:
+        print(f"bits: the tree's kernels give {'each parent' if parents else 'G'}'s bits "
+              f"at all {n} shapes" + ("" if parents else " (G against two A launches)"))
+
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
@@ -1161,6 +1445,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                       help="check and time the fused 3x3 conv kernel alone")
     mode.add_argument("--lstm", action="store_true",
                       help="check and time the LSTM kernels alone")
+    parser.add_argument("--f32", action="store_true",
+                        help="with --conv: A's and G's f32 entries (csrc/conv3x3_f32.cu)")
     mode.add_argument("--resize", action="store_true",
                       help="check and time the resize kernel alone")
     mode.add_argument("--masked", action="store_true",
@@ -1170,17 +1456,19 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                            "the sums: one process, cuDNN or not, two ranks at (2, 1) "
                            "and (1, 2)")
     parser.add_argument("--parent", nargs="+", default=None, metavar="PATH",
-                        help="with --resize, --masked or --lstm: another resize_pack.cu "
-                             "(one), masked_stats.cu or lstm.cu (one or more) to hold the "
-                             "tree's kernel (with --lstm: the gate terms) against and time "
-                             "in turns with it")
+                        help="with --resize, --masked, --lstm or --conv --f32: another "
+                             "resize_pack.cu (one), masked_stats.cu, lstm.cu or "
+                             "conv3x3_f32.cu (one or more) to hold the tree's kernel (with "
+                             "--lstm: the gate terms) against and time in turns with it")
     parser.add_argument("--trace", default=None,
                         help="where the Chrome trace is written (default: "
                              "build/port_forward_trace.json, port_train_trace.json "
                              "or port_eval_trace.json)")
     args = parser.parse_args(argv)
-    if args.parent is not None and not (args.resize or args.masked or args.lstm):
-        parser.error("--parent needs --resize, --masked or --lstm")
+    if args.f32 and not args.conv:
+        parser.error("--f32 needs --conv")
+    if args.parent is not None and not (args.resize or args.masked or args.lstm or args.f32):
+        parser.error("--parent needs --resize, --masked, --lstm or --conv --f32")
     if args.resize and args.parent is not None and len(args.parent) > 1:
         parser.error("--resize takes one --parent")
     return args
@@ -1200,7 +1488,9 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.conv:
+    if args.conv and args.f32:
+        conv_f32_profile(dev, args.parent)
+    elif args.conv:
         conv_profile(dev)
     elif args.resize:
         resize_profile(dev, args.parent[0] if args.parent else None)

@@ -41,10 +41,10 @@ def _conv(seed, b, h, w, cins, cout, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("cins,cout", [((5, 8), 7), ((23,), 64), ((16, 17, 40), 80),
-                                       ((64, 128), 33)])
+                                       ((64, 128), 33), ((23, 9), 40)])
 def test_f32_layout_round_trip(cins, cout):
     """prepare, then unpack: the folded f32 weights, exactly, in the f32
-    kernels' layout (16-channel K steps); the plain version on them equals
+    kernels' layout (K steps of TILE_K_F32 channels); the plain version on them equals
     its raw-weight call bit for bit."""
     parts, weights, scale, bias, add = _conv(0, 2, 6, 5, cins, cout)
     prepared = pvgg.prepare_conv3x3(weights, scale, bias, torch.float32)

@@ -21,7 +21,7 @@ from maunet_tpu_torch.ops.kernels import packed_vgg as pvgg
 # 32-wide instantiations; conv3x3_f32.cu: BK), written out a second time on
 # purpose.
 BK = 32
-BK_F32 = 16
+BK_F32 = 8
 
 
 def _read_like_the_kernel(packed: np.ndarray, cins, cout: int) -> list[np.ndarray]:
@@ -67,9 +67,9 @@ def _read_like_the_f32_kernel(packed: np.ndarray, cins, cout: int) -> list[np.nd
     """As :func:`_read_like_the_kernel`, for the f32 kernel
     (``csrc/conv3x3_f32.cu``): for output-channel tile ``nbase`` (BN = 64,
     or 32 for a last tile of at most 32 channels) and K step ``step`` (part
-    by part, 16 channels each) it copies ``9 * 16 * BN`` elements from
-    ``slab + step * 9 * 16 * BN`` and multiplies channel ``k`` of tap ``tap``
-    into output ``n`` with element ``(tap * 16 + k) * BN + n`` of them."""
+    by part, BK_F32 = 8 channels each) it copies ``9 * 8 * BN`` elements from
+    ``slab + step * 9 * 8 * BN`` and multiplies channel ``k`` of tap ``tap``
+    into output ``n`` with element ``(tap * 8 + k) * BN + n`` of them."""
     steps = sum(-(-c // BK_F32) for c in cins)
     out = [np.zeros((cout, c, 3, 3), packed.dtype) for c in cins]
     slab = 0
@@ -107,7 +107,8 @@ def _case(seed, b, h, w, cins, cout, dtype=torch.float32):
 SHAPES = [(2, 9, 11, (5, 8), 7), (1, 8, 8, (16,), 70)]
 
 
-@pytest.mark.parametrize("b,h,w,cins,cout", SHAPES)
+# A part of 23 channels (the U-Net's input) pads its last K step.
+@pytest.mark.parametrize("b,h,w,cins,cout", SHAPES + [(1, 6, 5, (23, 9), 40)])
 def test_prepared_layout_read_like_the_kernel_f32(b, h, w, cins, cout):
     parts, weights, scale, bias, add = _case(0, b, h, w, cins, cout)
     prepared = pvgg.prepare_conv3x3(weights, scale, bias, torch.float32)

@@ -101,7 +101,8 @@ def test_eval_family(profile_port, name, want):
     (["--masked"], "masked"), (["--masked", "--parent", "x.cu"], "masked"),
     (["--lstm", "--parent", "x.cu"], "lstm"),
     (["--lstm", "--parent", "x.cu", "y.cu"], "lstm"),
-    (["--masked", "--parent", "x.cu", "y.cu"], "masked")])
+    (["--masked", "--parent", "x.cu", "y.cu"], "masked"),
+    (["--conv", "--f32"], "conv"), (["--conv", "--f32", "--parent", "x.cu", "y.cu"], "conv")])
 def test_parse_args_modes(profile_port, argv, mode):
     args = profile_port.parse_args(argv)
     modes = [m for m in ("train", "eval", "conv", "lstm", "resize", "masked")
@@ -109,6 +110,7 @@ def test_parse_args_modes(profile_port, argv, mode):
     assert modes == ([mode] if mode else [])
     assert args.trace == ("t.json" if "--trace" in argv else None)
     assert args.parent == (argv[argv.index("--parent") + 1:] if "--parent" in argv else None)
+    assert args.f32 == ("--f32" in argv)
 
 
 @pytest.mark.parametrize("argv", [
@@ -116,7 +118,8 @@ def test_parse_args_modes(profile_port, argv, mode):
     ["--resize", "--conv"], ["--parent", "x.cu"], ["--conv", "--parent", "x.cu"],
     ["--resize", "x.cu"], ["--masked", "--lstm"], ["--masked", "--resize"],
     ["--masked", "x.cu"], ["--train", "--parent", "x.cu"],
-    ["--resize", "--parent", "x.cu", "y.cu"], ["--lstm", "--parent"]])
+    ["--resize", "--parent", "x.cu", "y.cu"], ["--lstm", "--parent"], ["--f32"],
+    ["--lstm", "--f32"], ["--f32", "--parent", "x.cu"], ["--eval", "--f32"]])
 def test_lstm_mode_refuses_other_modes_and_arguments(profile_port, argv):
     with pytest.raises(SystemExit):
         profile_port.parse_args(argv)
@@ -346,3 +349,73 @@ def test_parent_names_are_distinct(profile_port):
     assert profile_port.parent_names(["a/lstm.cu", "b/lstm.cu", "c/x.cu"]) == [
         "lstm_0", "lstm_1", "x"]
     assert profile_port.parent_names([]) == []
+
+
+@pytest.mark.parametrize("entry, want", [
+    ("'_ZN12_GLOBAL__N_118conv3x3_f32_kernelILi8EEEvN12_GLOBAL__N_17F32ConvE'",
+     "conv3x3_f32_kernel<8>"),
+    ("'_ZN12_GLOBAL__N_118conv3x3_f32_kernelILi4ELi3EEEvN12_GLOBAL__N_17F32ConvE'",
+     "conv3x3_f32_kernel<4, 3>"),
+    ("'_ZN12_GLOBAL__N_123conv3x3_pair_f32_kernelILi8ELi4EEEvN12_GLOBAL__N_17F32PairE'",
+     "conv3x3_pair_f32_kernel<8, 4>"),
+    ("'_ZN12_GLOBAL__N_123conv3x3_pair_f32_kernelILi4ELi4ELi2EEEvN12_GLOBAL__N_17F32PairE'",
+     "conv3x3_pair_f32_kernel<4, 4, 2>"),
+])
+def test_f32_kernel_label(profile_port, entry, want):
+    assert profile_port.f32_kernel_label(
+        f"ptxas info    : Compiling entry function {entry}") == want
+
+
+def test_f32_kernel_label_leaves_other_kernels_named_as_given(profile_port):
+    entry = "'_ZN12_GLOBAL__N_120conv3x3_fused_kernelILi8ELi3EEEvNS_8ConvArgsE'"
+    assert profile_port.f32_kernel_label(entry) == entry
+
+
+def test_f32_k_width_reads_the_source(profile_port):
+    """``--conv --f32 --parent`` lays each file's weights out for its own K
+    step: the tree's, and a file with another."""
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    with open(os.path.join(REPO, "maunet_tpu_torch", "csrc", "conv3x3_f32.cu")) as f:
+        assert profile_port.f32_k_width(f.read()) == packed_vgg.TILE_K_F32
+    assert profile_port.f32_k_width("constexpr int TH = 16;\nconstexpr int BK = 16;  // K") == 16
+    with pytest.raises(ValueError, match="BK"):
+        profile_port.f32_k_width("int main() {}")
+    width = packed_vgg.TILE_K_F32
+    with profile_port.f32_tile_k(width + 8):
+        assert packed_vgg.TILE_K_F32 == width + 8
+    assert packed_vgg.TILE_K_F32 == width
+
+
+def test_f32_parent_arguments_follow_its_signature(profile_port):
+    """A parent's A and G entries get the arguments their signatures name,
+    with weights prepared at the parent's K step."""
+    import torch
+
+    from maunet_tpu_torch.ops.kernels import packed_vgg
+
+    with open(os.path.join(REPO, "maunet_tpu_torch", "csrc", "conv3x3_f32.cu")) as f:
+        source = f.read()
+    fused, pair = (profile_port.entry_params(source, e) for e in profile_port.F32_ENTRIES)
+    parts = [torch.zeros(2, 5, 7, c) for c in (3, 9)]
+    weights = [torch.ones(6, c, 3, 3) for c in (3, 9)]
+    with profile_port.f32_tile_k(16):
+        p1 = packed_vgg.prepare_conv3x3(weights, torch.ones(6), torch.zeros(6), torch.float32)
+    assert p1.packed.numel() == 2 * 9 * 16 * 32
+    p2 = packed_vgg.prepare_conv3x3([torch.ones(4, 6, 3, 3)], None, torch.zeros(4),
+                                    torch.float32)
+    out, add = torch.empty(2, 5, 7, 6), torch.zeros(2, 3, 7, 6)
+    args, keep = profile_port.f32_arguments(profile_port.F32_ENTRIES[0], fused, parts, p1,
+                                            out, add, 11)
+    named = dict(zip([n for n, _ in fused], args))
+    assert named["wpk"] == p1.packed.data_ptr() and named["scale"] == p1.scale.data_ptr()
+    assert [named[k] for k in ("nparts", "B", "H", "W", "cout", "relu", "stream")] == [
+        2, 2, 5, 7, 6, 1, 11]
+    assert list(keep[1]) == [3, 9] and list(keep[0]) == [p.data_ptr() for p in parts]
+    out2 = torch.empty(2, 5, 7, 4)
+    args, _ = profile_port.f32_arguments(profile_port.F32_ENTRIES[1], pair, parts, p1, out2,
+                                         None, 11, p2)
+    named = dict(zip([n for n, _ in pair], args))
+    assert named["w2pk"] == p2.packed.data_ptr() and named["add"] is None
+    assert [named[k] for k in ("cmid", "cout", "out")] == [6, 4, out2.data_ptr()]
+    assert named["bias2"] == p2.bias.data_ptr() and named["scale1"] == p1.scale.data_ptr()
