@@ -1,0 +1,2 @@
+"""Percent of the traced window in which the device ran nothing."""
+from portbench.readers import idle_share as read  # noqa: F401
