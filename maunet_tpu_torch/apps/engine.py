@@ -8,6 +8,14 @@ run under ``torch.inference_mode()`` and return numpy arrays.  With a mesh,
 ``predict_many`` serves a request batch data-parallel over its devices
 (``parallel.infer``), padded to a multiple of the mesh's size with repeats
 of the last request, whose rows are dropped again.
+
+Spans (``utils.profiling``, recorded while a profiler runs):
+``engine.prepare_input`` holds ``engine.canvas_to_dw`` (with a canvas) and
+``engine.assemble``; ``engine.predict_many`` holds ``engine.concat``; a
+forward, ``engine.forward``, holds ``engine.upload``, ``engine.model`` and
+``engine.download``, whose ``.cpu()`` waits for the device's work.
+``PlannerEngine.pageable_h2d_bytes`` tallies the bytes a forward uploads from
+pageable host arrays (on the CPU, the bytes it would upload).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 from maunet_tpu_torch.data.schema import NormalizationStats
 from maunet_tpu_torch.parallel.infer import round_up_to_mesh, shard_batch_fn
 from maunet_tpu_torch.parallel.mesh import Mesh
+from maunet_tpu_torch.utils.profiling import span, tally
 
 log = logging.getLogger(__name__)
 
@@ -92,6 +101,14 @@ def _apply(model: torch.nn.Module, batch: dict[str, torch.Tensor]) -> torch.Tens
         return model(*(batch[k] for k, _ in _INPUTS))
 
 
+def _host_inputs(arrays) -> list[torch.Tensor]:
+    """A request batch's arrays as host tensors of the model's dtypes, in
+    ``_INPUTS``' order; tallies the bytes a forward uploads from them."""
+    host = [torch.as_tensor(a, dtype=dtype) for a, (_, dtype) in zip(arrays, _INPUTS)]
+    tally(PlannerEngine, "pageable_h2d_bytes", sum(t.nbytes for t in host))
+    return host
+
+
 @dataclass
 class PlannerInput:
     maps: np.ndarray         # (1, H, W, 23)
@@ -102,6 +119,9 @@ class PlannerInput:
 
 class PlannerEngine:
     """Loads a checkpoint once onto ``device`` and serves predictions."""
+
+    # Bytes of host arrays the forwards of every engine uploaded from pageable memory.
+    pageable_h2d_bytes = 0
 
     def __init__(self, checkpoint_path: str, *, device: str | torch.device,
                  stats: NormalizationStats | None = None, temp_query=None,
@@ -136,65 +156,67 @@ class PlannerEngine:
         layers: {'dw': (H,W) classes, 'rgb': (3,H,W) 0-255, 'ndvi': (H,W),
                  'temp': (H,W) °C} already at serving resolution.
         """
-        s = self.stats
-        hw = layers["dw"].shape[-2:]
-        dw_t1 = layers["dw"]
-        if canvas_rgba is not None:
-            dw_t2 = canvas_to_dw_map(canvas_rgba, hw, original_map=dw_t1)
-        else:
-            dw_t2 = dw_t1
+        with span("engine.prepare_input"):
+            dw_t1 = layers["dw"]
+            if canvas_rgba is None:
+                dw_t2 = dw_t1
+            else:
+                with span("engine.canvas_to_dw"):
+                    dw_t2 = canvas_to_dw_map(canvas_rgba, dw_t1.shape[-2:], original_map=dw_t1)
+            with span("engine.assemble"):
+                s = self.stats
+                onehot = lambda m: np.eye(9, dtype=np.float32)[
+                    np.clip(m.astype(int), 0, 8)].transpose(2, 0, 1)
+                rgb = (layers["rgb"] / 255.0
+                       - np.array(s.rgb_mean)[:, None, None]) / np.array(s.rgb_std)[:, None, None]
+                temp = (layers["temp"] - s.temp_mean) / s.temp_std
 
-        onehot = lambda m: np.eye(9, dtype=np.float32)[
-            np.clip(m.astype(int), 0, 8)].transpose(2, 0, 1)
-        rgb = (layers["rgb"] / 255.0
-               - np.array(s.rgb_mean)[:, None, None]) / np.array(s.rgb_std)[:, None, None]
-        temp = (layers["temp"] - s.temp_mean) / s.temp_std
+                stack = np.vstack([
+                    onehot(dw_t1), rgb, layers["ndvi"][None], temp[None], onehot(dw_t2),
+                ]).astype(np.float32)
+                maps = stack.transpose(1, 2, 0)[None]  # NHWC
 
-        stack = np.vstack([
-            onehot(dw_t1), rgb, layers["ndvi"][None], temp[None], onehot(dw_t2),
-        ]).astype(np.float32)
-        maps = stack.transpose(1, 2, 0)[None]  # NHWC
+                delta_t = (year_t2 - year_t1) + (month_t2 - month_t1) / 12.0
+                meta = (np.array([lat, lon, population, delta_t])
+                        - np.array(s.meta_mean)) / np.array(s.meta_std)
+                meta_full = np.concatenate(
+                    [meta, [year_t1, month_t1], [year_t2, month_t2]]).astype(np.float32)
+                if self.metadata_features == 4:
+                    meta_full = meta_full[:4]
 
-        delta_t = (year_t2 - year_t1) + (month_t2 - month_t1) / 12.0
-        meta = (np.array([lat, lon, population, delta_t])
-                - np.array(s.meta_mean)) / np.array(s.meta_std)
-        meta_full = np.concatenate(
-            [meta, [year_t1, month_t1], [year_t2, month_t2]]).astype(np.float32)
-        if self.metadata_features == 4:
-            meta_full = meta_full[:4]
-
-        series = np.zeros((self.temporal_length,), np.float32)
-        length = 0
-        if self.temp_query is not None:
-            try:
-                ts = np.asarray(self.temp_query.query(
-                    lat, lon, int(year_t1), int(month_t1)))
-                ts = (ts - s.temp_series_mean) / s.temp_series_std
-                length = min(len(ts), self.temporal_length)
-                series[:length] = ts[:length]
-            except Exception as e:  # zero-series fallback (reference :169-175)
-                log.warning(f"Temperature query failed: {e}; using zero series.")
-        return PlannerInput(
-            maps=maps,
-            metadata=meta_full[None],
-            temp_series=series[None],
-            temp_lengths=np.array([max(length, 1)], np.int32),
-        )
+                series = np.zeros((self.temporal_length,), np.float32)
+                length = 0
+                if self.temp_query is not None:
+                    try:
+                        ts = np.asarray(self.temp_query.query(
+                            lat, lon, int(year_t1), int(month_t1)))
+                        ts = (ts - s.temp_series_mean) / s.temp_series_std
+                        length = min(len(ts), self.temporal_length)
+                        series[:length] = ts[:length]
+                    except Exception as e:  # zero-series fallback (reference :169-175)
+                        log.warning(f"Temperature query failed: {e}; using zero series.")
+                return PlannerInput(
+                    maps=maps,
+                    metadata=meta_full[None],
+                    temp_series=series[None],
+                    temp_lengths=np.array([max(length, 1)], np.int32),
+                )
 
     def _forward(self, maps, temp_series, metadata, temp_lengths) -> np.ndarray:
-        dev = self.device
-        with torch.inference_mode():
-            out = self.model(
-                torch.as_tensor(maps, dtype=torch.float32, device=dev),
-                torch.as_tensor(temp_series, dtype=torch.float32, device=dev),
-                torch.as_tensor(metadata, dtype=torch.float32, device=dev),
-                torch.as_tensor(temp_lengths, dtype=torch.int32, device=dev))
-            return out.float().cpu().numpy()
+        with span("engine.forward"), torch.inference_mode():
+            with span("engine.upload"):
+                host = _host_inputs((maps, temp_series, metadata, temp_lengths))
+                args = [t.to(self.device) for t in host]
+            with span("engine.model"):
+                out = self.model(*args)
+            with span("engine.download"):
+                return out.float().cpu().numpy()
 
     def predict(self, inp: PlannerInput) -> tuple[np.ndarray, np.ndarray]:
         """-> (ndvi (H, W) in [-1, 1], lst (H, W) in °C)."""
-        out = self._forward(inp.maps, inp.temp_series, inp.metadata,
-                            inp.temp_lengths)[0]
+        with span("engine.predict"):
+            out = self._forward(inp.maps, inp.temp_series, inp.metadata,
+                                inp.temp_lengths)[0]
         ndvi = out[..., 0]
         lst = out[..., 1] * self.stats.temp_std + self.stats.temp_mean
         return ndvi, lst
@@ -202,16 +224,26 @@ class PlannerEngine:
     def predict_many(self, inputs: list[PlannerInput]
                      ) -> list[tuple[np.ndarray, np.ndarray]]:
         """Batched prediction over a request list: one forward on the
-        engine's device, or data-parallel over the engine's mesh."""
-        arrays = [np.concatenate([getattr(i, k) for i in inputs]) for k, _ in _INPUTS]
-        if self._forward_many is None:
-            out = self._forward(*arrays)
-        else:
-            n = len(inputs)
-            pad = round_up_to_mesh(n, self.mesh) - n
-            batch = {k: torch.as_tensor(np.concatenate([v] + [v[-1:]] * pad), dtype=dtype)
-                     for (k, dtype), v in zip(_INPUTS, arrays)}
-            out = self._forward_many(self.model, batch).float().cpu().numpy()[:n]
+        engine's device, or data-parallel over the engine's mesh.  On the mesh,
+        ``engine.upload`` makes the padded host batch and each shard's copy runs
+        inside ``engine.model``."""
+        with span("engine.predict_many"):
+            with span("engine.concat"):
+                arrays = [np.concatenate([getattr(i, k) for i in inputs]) for k, _ in _INPUTS]
+            if self._forward_many is None:
+                out = self._forward(*arrays)
+            else:
+                n = len(inputs)
+                pad = round_up_to_mesh(n, self.mesh) - n
+                with span("engine.forward"):
+                    with span("engine.upload"):
+                        host = _host_inputs([np.concatenate([v] + [v[-1:]] * pad)
+                                             for v in arrays])
+                    with span("engine.model"):
+                        out = self._forward_many(self.model, dict(zip(
+                            (k for k, _ in _INPUTS), host)))
+                    with span("engine.download"):
+                        out = out.float().cpu().numpy()[:n]
         s = self.stats
         return [(o[..., 0], o[..., 1] * s.temp_std + s.temp_mean) for o in out]
 

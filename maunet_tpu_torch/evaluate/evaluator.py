@@ -27,12 +27,19 @@ floats by ``repr``.  The test split is read packed or per sample
 visible CUDA device) the forward and the metrics run data-parallel over its
 devices (``parallel.infer``, JAX evaluator.py:161-215), the batch size
 rounded up to a multiple of the mesh's size.  Left out: trackers.
+
+Spans (``utils.profiling``, recorded while a profiler runs): ``eval.batch``
+(:func:`batch_metrics`) holds ``eval.forward`` and ``eval.metrics``;
+``evaluate_checkpoint`` adds ``eval.load_wait``, the wait for each batch
+from the loader, and ``eval.fetch``, each batch's copy to the host, which
+waits for the device's work.
 """
 
 from __future__ import annotations
 
 import collections
 import csv
+import itertools
 import json
 import logging
 import math
@@ -59,6 +66,7 @@ from maunet_tpu_torch.parallel.mesh import Mesh, make_mesh
 from maunet_tpu_torch.train.config import TrainConfig
 from maunet_tpu_torch.train.steps import forward_fn
 from maunet_tpu_torch.utils.dw import DW_CLASSES
+from maunet_tpu_torch.utils.profiling import span
 from maunet_tpu_torch.utils.tracking import make_emb_tag
 
 log = logging.getLogger(__name__)
@@ -100,12 +108,15 @@ def known_cities_from_train_dir(train_dir: str) -> set[str]:
 
 def batch_metrics(model: torch.nn.Module, batch: dict[str, torch.Tensor],
                   stats: NormalizationStats | None, metadata_features: int):
-    """(metrics, outputs_un, targets_un) of one device batch."""
-    with torch.inference_mode():
-        outputs = forward_fn(model, batch, metadata_features)
-        targets_un = unnormalize_targets(batch["targets"], stats)
-        outputs_un = unnormalize_targets(outputs, stats)
-        metrics = eval_metrics(outputs_un, targets_un, dw_map_from_input(batch["maps"]))
+    """(metrics, outputs_un, targets_un) of one device batch.  Spans:
+    ``eval.batch`` holds ``eval.forward`` and ``eval.metrics``."""
+    with span("eval.batch"), torch.inference_mode():
+        with span("eval.forward"):
+            outputs = forward_fn(model, batch, metadata_features)
+        with span("eval.metrics"):
+            targets_un = unnormalize_targets(batch["targets"], stats)
+            outputs_un = unnormalize_targets(outputs, stats)
+            metrics = eval_metrics(outputs_un, targets_un, dw_map_from_input(batch["maps"]))
     return metrics, outputs_un, targets_un
 
 
@@ -196,11 +207,12 @@ def evaluate_checkpoint(
         """Fetch one batch's metrics (waiting for that batch alone) and
         append its samples' rows."""
         nonlocal sample_idx, created_visuals
-        metrics = _to_host(entry["metrics"])
-        valid, t1, t2 = (_to_host(entry[k]) for k in ("valid", "t1", "t2"))
-        maps_h = outputs_un = targets_un = None
-        if "images" in entry:
-            maps_h, outputs_un, targets_un = _to_host(entry["images"])
+        with span("eval.fetch"):
+            metrics = _to_host(entry["metrics"])
+            valid, t1, t2 = (_to_host(entry[k]) for k in ("valid", "t1", "t2"))
+            maps_h = outputs_un = targets_un = None
+            if "images" in entry:
+                maps_h, outputs_un, targets_un = _to_host(entry["images"])
 
         if np.isnan(metrics["mae"][valid]).any():
             log.error(f"NaN values found in outputs near sample {sample_idx}")
@@ -264,7 +276,12 @@ def evaluate_checkpoint(
         sharded = shard_batch_fn(
             lambda model, batch: batch_metrics(model, batch, stats, metadata_features), mesh)
     pending: collections.deque[dict] = collections.deque()
-    for j, batch in enumerate(prefetch_to_device(make_batches(ds, batch_size), device)):
+    batches = prefetch_to_device(make_batches(ds, batch_size), device)
+    for j in itertools.count():
+        with span("eval.load_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         metrics, outputs_un, targets_un = (
             sharded(loaded.model, batch) if mesh is not None
             else batch_metrics(loaded.model, batch, stats, metadata_features))

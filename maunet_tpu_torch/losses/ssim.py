@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from maunet_tpu_torch.losses.basic import mean, with_rows_below
 from maunet_tpu_torch.parallel import spatial
+from maunet_tpu_torch.utils.profiling import tally
 
 
 @functools.lru_cache(maxsize=8)
@@ -50,14 +51,20 @@ def _band_matrix(n: int, size: int, sigma: float) -> np.ndarray:
 
 
 def _blur(x: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
-    """VALID separable gaussian blur of NHWC ``x``, per channel, in f32."""
+    """VALID separable gaussian blur of NHWC ``x``, per channel, in f32.
+    ``_blur.host_constants`` counts the band matrices made from host arrays
+    at call time (on the card, a blocking copy each)."""
     b, h, w, c = x.shape
     kh = torch.from_numpy(_band_matrix(h, size, sigma)).to(x.device)
     kw = torch.from_numpy(_band_matrix(w, size, sigma)).to(x.device)
+    tally(_blur, "host_constants", 2)
     y = torch.matmul(kh, x.reshape(b, h, w * c))              # (b, h2, w*c)
     h2 = y.shape[1]
     y = torch.matmul(kw, y.reshape(b * h2, w, c))             # (b*h2, w2, c)
     return y.reshape(b, h2, -1, c)
+
+
+_blur.host_constants = 0
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,

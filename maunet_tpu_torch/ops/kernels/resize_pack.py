@@ -27,6 +27,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from maunet_tpu_torch.ops.kernels import _build
+from maunet_tpu_torch.utils.profiling import tally
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel walks a strip of output rows per thread (``_strip_rows``): the
@@ -65,10 +66,12 @@ def _row_taps(n_in: int, n_out: int, out_row0: int, rows: int, src_row0: int, de
     """Output rows [out_row0, out_row0 + rows) of an align-corners n_in ->
     n_out resize as (lo, hi, 1 - frac, frac): the two source rows, counted
     from ``src_row0``, and their f32 weights, the values of
-    ``ops/resize._interp_matrix``."""
+    ``ops/resize._interp_matrix``.  ``_row_taps.host_constants`` counts the
+    tensors made from host arrays."""
     from maunet_tpu_torch.ops.resize import axis_taps
 
     lo, hi, frac = (a[out_row0:out_row0 + rows] for a in axis_taps(n_in, n_out))
+    tally(_row_taps, "host_constants", 4)
     w_lo = torch.from_numpy(np.float32(1.0) - frac).to(device)
     return (torch.from_numpy(lo - src_row0).to(device),
             torch.from_numpy(hi - src_row0).to(device), w_lo, torch.from_numpy(frac).to(device))
@@ -108,7 +111,9 @@ def resize_rows_backward(g: torch.Tensor, in_hw: tuple[int, int], h_total: int,
     """The window's reverse rule: (B, oh, ow, C) cotangent -> (B, h, w, C),
     the W-pass then the H-pass with the transposed interpolation matrices
     (the H one cut to the window), in the cotangent's dtype (JAX
-    ``_rp_bwd``)."""
+    ``_rp_bwd``).  ``resize_rows_backward.host_constants`` counts the
+    matrices made from host arrays at call time (on the card, a blocking
+    copy each)."""
     from maunet_tpu_torch.ops.resize import _interp_matrix
 
     b, oh, ow, c = g.shape
@@ -116,6 +121,7 @@ def resize_rows_backward(g: torch.Tensor, in_hw: tuple[int, int], h_total: int,
     wh = _interp_matrix(h_total, oh_total)[out_row0:out_row0 + oh, src_row0:src_row0 + h]
     ww_t = torch.from_numpy(_interp_matrix(w, ow).T.copy()).to(g.device, g.dtype)
     wh_t = torch.from_numpy(wh.T.copy()).to(g.device, g.dtype)
+    tally(resize_rows_backward, "host_constants", 2)
     y = torch.matmul(ww_t, g.reshape(b * oh, ow, c))           # (b*oh, w, c)
     return torch.matmul(wh_t, y.reshape(b, oh, w * c)).reshape(b, h, w, c)
 
@@ -235,3 +241,5 @@ def _launch(x: torch.Tensor, out_hw: tuple[int, int], rows: int) -> torch.Tensor
 
 resize_pack.launches = 0
 resize_rows.launches = 0
+_row_taps.host_constants = 0
+resize_rows_backward.host_constants = 0

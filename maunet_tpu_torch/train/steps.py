@@ -23,6 +23,13 @@ explicit all-reduce keeps the module's own state_dict keys, which a
 ``DistributedDataParallel`` wrapper would prefix with ``module.``.  With one
 rank nothing is exchanged.
 
+Spans (``utils.profiling``, recorded while a profiler runs): ``train.step``
+holds ``train.forward``, ``train.loss``, ``train.backward`` and
+``train.optimizer`` (the zero gradients, the norm, the clip and the update),
+which holds ``train.allreduce`` where there is more than one rank.  They are
+host time: a phase's span ends once its work is enqueued, or once the host
+has waited for it.
+
 The spatial axis (``parallel/spatial.py``): the ranks of one data index hold
 bands of the same images' rows, and both steps run the model and the losses
 under :func:`~maunet_tpu_torch.parallel.spatial.row_shards`.  Each rank's
@@ -48,6 +55,7 @@ from maunet_tpu_torch.parallel.multihost import axes, world_size
 from maunet_tpu_torch.parallel.spatial import row_shards
 from maunet_tpu_torch.train.optimizers import clip_by_global_norm_, global_norm
 from maunet_tpu_torch.train.state import TrainState
+from maunet_tpu_torch.utils.profiling import span
 
 Batch = dict[str, torch.Tensor]
 LossFn = Callable[[torch.Tensor, torch.Tensor], dict[str, torch.Tensor]]
@@ -115,27 +123,33 @@ def _update(state: TrainState, batch: Batch, loss_fn: LossFn, gradient_clipping:
             metadata_features: int):
     """The step itself: (loss components, global gradient norm, outputs)."""
     model, opt = state.model, state.optimizer
-    model.train()
-    with row_shards(batch["maps"].shape[1]):
-        outputs = model_outputs(model, batch, metadata_features)
-        losses = ds_loss(loss_fn, outputs, batch["targets"])
-        opt.zero_grad(set_to_none=True)
-        losses["total"].backward()
-    params = [p for group in opt.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    if world_size() > 1:
-        data = axes().data
-        average_over_ranks_(grads, data)
-        losses = dict(zip(losses, average_over_ranks_(
-            [torch.stack([v.detach() for v in losses.values()])], data)[0]))
-    norm = global_norm(grads)
-    if gradient_clipping and gradient_clipping > 0:
-        clip_by_global_norm_(grads, norm, gradient_clipping)
-    opt.step()
-    state.step += 1
+    with span("train.step"):
+        model.train()
+        with row_shards(batch["maps"].shape[1]):
+            with span("train.forward"):
+                outputs = model_outputs(model, batch, metadata_features)
+            with span("train.loss"):
+                losses = ds_loss(loss_fn, outputs, batch["targets"])
+            with span("train.backward"):
+                opt.zero_grad(set_to_none=True)
+                losses["total"].backward()
+        with span("train.optimizer"):
+            params = [p for group in opt.param_groups for p in group["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if world_size() > 1:
+                with span("train.allreduce"):
+                    data = axes().data
+                    average_over_ranks_(grads, data)
+                    losses = dict(zip(losses, average_over_ranks_(
+                        [torch.stack([v.detach() for v in losses.values()])], data)[0]))
+            norm = global_norm(grads)
+            if gradient_clipping and gradient_clipping > 0:
+                clip_by_global_norm_(grads, norm, gradient_clipping)
+            opt.step()
+        state.step += 1
     return losses, norm, outputs
 
 

@@ -11,13 +11,36 @@ Port of ``maunet_tpu/utils/profiling.py``:
 - ``device_memory_stats()``: per visible CUDA device, the bytes allocated,
   the device's total and the peak allocated since the last
   ``torch.cuda.reset_peak_memory_stats``; an empty list without a card.
+
+The program's own spans and tallies, which the JAX package has not:
+
+- ``span(name)``: a context manager around one piece of host work, at a
+  layer boundary of the program (``engine.forward``, ``train.loss``, ...);
+- ``tally(owner, attr, n)``: ``owner.attr += n``, a plain counter
+  attribute, as the kernel wrappers' ``.launches`` are.
+
+Both record only while ``torch``'s profiler is enabled, so they cost one
+flag read outside a trace and need no switch of their own: they appear
+whenever someone traces, with :func:`trace` or any other ``torch.profiler``
+profile.  Times are ``time.time_ns``, the wall clock that a Chrome trace's
+``ts`` and ``baseTimeNanoseconds`` count in, so a span is placed beside the
+device's intervals by subtracting ``baseTimeNanoseconds``.  They are kept
+in memory, in a bounded buffer, until :func:`recorded` reads them or
+:func:`clear` empties it; :func:`trace` writes them into its
+``trace.json``.  A span is host time: one that ends by copying a result to
+the host also holds the wait for the device.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,19 +50,124 @@ from maunet_tpu_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 TRACE_FILE = "trace.json"
+# The Chrome trace's category and process of the program's spans and tallies.
+CATEGORY = "maunet"
+# Spans and tally events kept until read: a traced window of thousands of
+# units fits; older events give way first.
+MAX_EVENTS = 1 << 16
+
+# Read at every span and tally; about 80 ns.
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_events: collections.deque = collections.deque(maxlen=MAX_EVENTS)
+_serial = itertools.count()
+_local = threading.local()
+
+
+class Span(NamedTuple):
+    """A recorded span: ``parent`` is the index, in :func:`recorded`'s list,
+    of the span that enclosed it on the same thread (-1: none, or one not
+    kept or not yet closed); ``thread`` is the native id of that thread."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    thread: int
+
+
+class Tally(NamedTuple):
+    """A recorded tally: ``<owner's qualified name>.<attr>`` grew by ``n`` at ``t_ns``."""
+    name: str
+    t_ns: int
+    n: int
+
+
+# What :func:`span` returns outside a trace: one shared object that does nothing.
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "serial", "parent", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+            _local.thread = threading.get_native_id()
+        self.serial = next(_serial)
+        self.parent = stack[-1] if stack else -1
+        stack.append(self.serial)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _local.stack.pop()
+        # (serial, name, start, end, parent's serial, thread): a Span once read.
+        _events.append((self.serial, self.name, self.start, end, self.parent, _local.thread))
+        return None
+
+
+def span(name: str):
+    """A context manager recording ``name``'s host time while the profiler is
+    enabled; otherwise the shared no-op object."""
+    return _Span(name) if _profiler_enabled() else _NO_SPAN
+
+
+def tally(owner, attr: str, n: int = 1) -> None:
+    """``owner.attr += n``; while the profiler is enabled, also record the
+    event, so a reader can count the tally inside a window."""
+    setattr(owner, attr, getattr(owner, attr) + n)
+    if _profiler_enabled():
+        _events.append(Tally(f"{owner.__qualname__}.{attr}", time.time_ns(), n))
+
+
+def recorded() -> tuple[list[Span], list[Tally]]:
+    """The kept spans, in the order they were entered, and tally events, in
+    the order they happened."""
+    events = list(_events)
+    opened = sorted(e for e in events if not isinstance(e, Tally))
+    index = {e[0]: i for i, e in enumerate(opened)}
+    spans = [Span(name, start, end, index.get(parent, -1), thread)
+             for _, name, start, end, parent, thread in opened]
+    return spans, [e for e in events if isinstance(e, Tally)]
+
+
+def clear() -> None:
+    _events.clear()
+
+
+def _chrome_events(base_ns: int) -> list[dict]:
+    """The kept spans (``"X"``) and tallies (``"C"``, each tally's running
+    total) as Chrome-trace events in µs from ``base_ns``."""
+    spans, tallies = recorded()
+    us = lambda t: (t - base_ns) / 1e3
+    out = [{"ph": "X", "cat": CATEGORY, "name": s.name, "pid": CATEGORY, "tid": s.thread,
+            "ts": us(s.start_ns), "dur": (s.end_ns - s.start_ns) / 1e3} for s in spans]
+    totals: dict[str, int] = {}
+    for t in tallies:
+        totals[t.name] = totals.get(t.name, 0) + t.n
+        out.append({"ph": "C", "cat": CATEGORY, "name": t.name, "pid": CATEGORY,
+                    "ts": us(t.t_ns), "args": {"total": totals[t.name]}})
+    return out
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a ``torch.profiler`` trace of the enclosed block into
     ``logdir/trace.json``; the device's kernels are in it when a card is
-    visible.  Work still queued on the card at the end is waited for."""
+    visible.  Work still queued on the card at the end is waited for.  The
+    program's spans and tallies of the block are added to the same file,
+    on the trace's clock, in the category and process ``maunet``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    clear()
     with profile(activities=activities) as prof:
         try:
             yield prof
@@ -48,6 +176,11 @@ def trace(logdir: str):
                 torch.cuda.synchronize()
     path = os.path.join(logdir, TRACE_FILE)
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"].extend(_chrome_events(doc.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(doc, f)
     log.info(f"Profiler trace written to {path}")
 
 

@@ -1,0 +1,6 @@
+"""Device idle ms a batch while the host is in ``eval.metrics``."""
+from portbench.program import idle_ms
+
+
+def read(run):
+    return idle_ms(run, "eval.metrics")
