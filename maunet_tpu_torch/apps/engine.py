@@ -15,7 +15,9 @@ Spans (``utils.profiling``, recorded while a profiler runs):
 forward, ``engine.forward``, holds ``engine.upload``, ``engine.model`` and
 ``engine.download``, whose ``.cpu()`` waits for the device's work.
 ``PlannerEngine.pageable_h2d_bytes`` tallies the bytes a forward uploads from
-pageable host arrays (on the CPU, the bytes it would upload).
+pageable host arrays (on the CPU, the bytes it would upload);
+``PlannerEngine.canvas_colours_searched`` the distinct colours each painted
+canvas's nearest-colour search ran over.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ CANVAS_PALETTE = (
 CANVAS_RGB = np.array(
     [[int(h[i:i + 2], 16) for i in (1, 3, 5)] for h in CANVAS_PALETTE],
     dtype=np.float64)
+_CANVAS_RGB_INT = CANVAS_RGB.astype(np.int32)
 
 # The reference's hardcoded serving stats (app/processing_utils.py:15-24) —
 # fallback ONLY; prefer stats loaded from the dataset or checkpoint metadata.
@@ -69,7 +72,13 @@ def canvas_to_dw_map(canvas_rgba: np.ndarray, target_shape: tuple[int, int],
     undrawn (alpha=0) pixels keep the original map
     (reference app/processing_utils.py:70-110).  Pillow is needed only when
     the canvas has to be resized: a NEAREST resize to the canvas's own size
-    is the identity."""
+    is the identity.
+
+    Only painted pixels are searched when ``original_map`` is given.  Each
+    searched pixel's RGB is packed into one integer; the distinct ones are
+    compared with the palette in ``int32`` (squared distances at most
+    3 * 255**2, so exact), ``argmin`` keeps the first of equal distances, and
+    their number is tallied in ``PlannerEngine.canvas_colours_searched``."""
     arr = np.asarray(canvas_rgba).astype("uint8")
     if arr.shape[:2] != tuple(target_shape):
         from PIL import Image
@@ -78,16 +87,32 @@ def canvas_to_dw_map(canvas_rgba: np.ndarray, target_shape: tuple[int, int],
         arr = np.array(img.resize((target_shape[1], target_shape[0]),
                                   Image.NEAREST))
     alpha = arr[:, :, 3]
-    rgb = arr[:, :, :3].reshape(-1, 3).astype(np.float64)
-
-    dists = ((rgb[:, None, :] - CANVAS_RGB[None, :, :]) ** 2).sum(-1)
-    nearest = np.argmin(dists, axis=1).reshape(target_shape)
-
-    if original_map is not None:
+    # R | G << 8 | B << 16 | A << 24 per pixel, alpha masked off below.
+    packed = np.ascontiguousarray(arr[:, :, :4]).view("<u4").reshape(-1)
+    if original_map is None:
+        out, searched = np.empty(alpha.shape, np.uint8), slice(None)
+    else:
         if original_map.ndim == 3:
             original_map = original_map[0]
-        nearest = np.where(alpha > 0, nearest, original_map)
-    return nearest.astype(np.uint8)
+        # Unpainted pixels keep the map, cast to uint8 through its promotion
+        # with intp (a float map through float64), as np.where would merge it.
+        wide = original_map.astype(np.result_type(np.intp, original_map.dtype), copy=False)
+        out = np.broadcast_to(wide, alpha.shape).astype(np.uint8, order="C")
+        searched = np.flatnonzero(alpha)
+    colours, inverse = np.unique(packed[searched] & 0xFFFFFF, return_inverse=True)
+    rgb = np.stack([colours & 0xFF, colours >> 8 & 0xFF, colours >> 16], 1).astype(np.int32)
+    nearest = ((rgb[:, None, :] - _CANVAS_RGB_INT[None]) ** 2).sum(-1).argmin(1)
+    out.reshape(-1)[searched] = nearest.astype(np.uint8)[inverse]
+    tally(PlannerEngine, "canvas_colours_searched", len(colours))
+    return out
+
+
+def _one_hot(classes: np.ndarray, planes: np.ndarray) -> None:
+    """Writes the (9, H, W) one-hot planes of a class map, each class
+    truncated to an integer and clipped to 0..8."""
+    k = np.clip(classes.astype(int), 0, 8).astype(np.uint8)
+    for c in range(9):
+        np.equal(k, c, out=planes[c], casting="unsafe")
 
 
 # A request batch's inputs, in the model's argument order, with their dtypes.
@@ -122,6 +147,8 @@ class PlannerEngine:
 
     # Bytes of host arrays the forwards of every engine uploaded from pageable memory.
     pageable_h2d_bytes = 0
+    # Distinct colours the painted canvases' nearest-colour searches ran over.
+    canvas_colours_searched = 0
 
     def __init__(self, checkpoint_path: str, *, device: str | torch.device,
                  stats: NormalizationStats | None = None, temp_query=None,
@@ -158,23 +185,27 @@ class PlannerEngine:
         """
         with span("engine.prepare_input"):
             dw_t1 = layers["dw"]
-            if canvas_rgba is None:
-                dw_t2 = dw_t1
-            else:
+            if canvas_rgba is not None:
                 with span("engine.canvas_to_dw"):
                     dw_t2 = canvas_to_dw_map(canvas_rgba, dw_t1.shape[-2:], original_map=dw_t1)
             with span("engine.assemble"):
                 s = self.stats
-                onehot = lambda m: np.eye(9, dtype=np.float32)[
-                    np.clip(m.astype(int), 0, 8)].transpose(2, 0, 1)
-                rgb = (layers["rgb"] / 255.0
-                       - np.array(s.rgb_mean)[:, None, None]) / np.array(s.rgb_std)[:, None, None]
-                temp = (layers["temp"] - s.temp_mean) / s.temp_std
-
-                stack = np.vstack([
-                    onehot(dw_t1), rgb, layers["ndvi"][None], temp[None], onehot(dw_t2),
-                ]).astype(np.float32)
-                maps = stack.transpose(1, 2, 0)[None]  # NHWC
+                # Fresh and channel-major (a caller may keep every input it is
+                # given); each channel is computed in the dtype numpy promotes
+                # it to (RGB in float64) and rounded to f32 once, as it is stored.
+                buf = np.empty((23, *dw_t1.shape), np.float32)
+                _one_hot(dw_t1, buf[:9])
+                rgb_mean, rgb_std = np.array(s.rgb_mean), np.array(s.rgb_std)
+                for c in range(3):
+                    buf[9 + c] = (layers["rgb"][c] / 255.0
+                                  - rgb_mean[c:c + 1]) / rgb_std[c:c + 1]
+                buf[12] = layers["ndvi"]
+                buf[13] = (layers["temp"] - s.temp_mean) / s.temp_std
+                if canvas_rgba is None:
+                    buf[14:] = buf[:9]
+                else:
+                    _one_hot(dw_t2, buf[14:])
+                maps = buf.transpose(1, 2, 0)[None]  # NHWC
 
                 delta_t = (year_t2 - year_t1) + (month_t2 - month_t1) / 12.0
                 meta = (np.array([lat, lon, population, delta_t])
