@@ -50,7 +50,15 @@ Phases, one output line each (or a few for the kernel table):
    same epilogue (TF32 off), G also against the two f32 A launches it
    replaces, whose bits it must give (both sum each output in one order);
    ``nvcc -Xptxas -v`` on that source, run beside the build, gives
-   each f32 instantiation's registers and spills for their rows;
+   each f32 instantiation's registers and spills for their rows.  The
+   fused train-mode BatchNorm (``csrc/batchnorm_train.cu``, through
+   ``bn_relu_train``, forward and backward) runs at the U-Net's 18 train
+   shapes (B = 16, 256², five distinct) and U-Net++'s five, in bf16 and
+   f32, and on two row-cropped views, against its plain version (the
+   output, the running statistics and the gradients of y, weight and
+   beta), twice with the same bits (a view also with its contiguous copy's),
+   beside cuDNN's train-mode ``F.batch_norm`` with ReLU and its bound of
+   10 bytes an element in bf16; a line sums a U-Net step's 18;
 4. golden: the small U-Net and U-Net++ of ``tests/fixtures/golden_unet.npz``
    and ``golden_unetpp.npz`` run on the card in bf16 and in f32 (A's entry
    of that dtype alone launching) and are held against the JAX package's
@@ -290,6 +298,12 @@ Tolerances (the plain versions compute in f32 from the same bf16 operands):
     its windowed plain version, as the resize, 1e-2 + 1e-2 |plain|;
   spatial serving forward vs unsharded: as the serving path, 5%;
   spatial train step vs one process (f32, TF32 off): see phase 14 (c);
+  bn_relu_train (the statistics summed in other orders on the two sides):
+    out and dy <= 1e-2 + 1e-2 |plain| in bf16, 1e-4 + 1e-4 |plain| in f32;
+    dweight and dbias <= 2e-3 of the tensor's largest; running statistics
+    <= 1e-5 + 1e-5 |plain|; an element within rounding of the ReLU's edge may
+    take the other side (its dy left out, its term allowed in its channel's
+    sums; at most 16 + 1e-6 of the elements);
   train step with remat vs plain: the same loss bits and running
     statistics; each gradient within 1e-2 of its tensor's largest magnitude
     (cuDNN's dgrad and wgrad may sum in another order when run again).
@@ -392,21 +406,25 @@ class KernelTable:
               + (" ok" if ok else " FAIL"))
         if not ok:
             raise AssertionError(f"{name} {label} disagrees with its plain version")
-        if not on_path:
-            return ms
+        if on_path:
+            self.add(name, err, ms, plain_ms, bytes_ms, ops_ms, library_ms)
+        return ms
+
+    def add(self, name: str, err: float, ms: float, plain_ms: float, bytes_ms: float,
+            ops_ms: float, library_ms: float | None, times: int = 1) -> None:
+        """Enter one path shape, ``times`` over, into the kernel's summary row."""
         row = self.rows.setdefault(name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bytes_ms": 0.0, "ops_ms": 0.0,
-            "library_ms": None if library is None else 0.0})
+            "library_ms": None if library_ms is None else 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += ms
-        row["plain_ms"] += plain_ms
-        row["bound_ms"] += max(bytes_ms, ops_ms)
-        row["bytes_ms"] += bytes_ms
-        row["ops_ms"] += ops_ms
-        if library is not None:
-            row["library_ms"] += library_ms
-        return ms
+        row["ms"] += times * ms
+        row["plain_ms"] += times * plain_ms
+        row["bound_ms"] += times * max(bytes_ms, ops_ms)
+        row["bytes_ms"] += times * bytes_ms
+        row["ops_ms"] += times * ops_ms
+        if library_ms is not None:
+            row["library_ms"] += times * library_ms
 
     def summary(self, name: str) -> dict:
         """The kernel's row of the summary line; ``bound_by`` says which of
@@ -1017,6 +1035,180 @@ def check_f32_kernels(table: KernelTable, dev, registers: dict[str, str]) -> Non
         print(f"kernel {name}: ptxas -v {table.rows[name]['registers']}")
 
 
+# The fused train-mode BatchNorm (csrc/batchnorm_train.cu) at every shape a
+# train step at B = 16, 256², gives it: the U-Net's (base 64) as (side, C,
+# BNs of that shape a step), 18 in all, and U-Net++'s (base 32) distinct ones.
+BN_TRAIN_UNET = ((256, 64, 4), (128, 128, 4), (64, 256, 4), (32, 512, 4), (16, 1024, 2))
+BN_TRAIN_UNETPP = ((256, 32), (128, 64), (64, 128), (32, 256), (16, 512))
+# A train step's fused calls, one a train-mode BN (U-Net++: 15 blocks), each
+# four launches (two forward, two backward).
+BN_TRAIN_CALLS = {"unet": 18, "unet++": 30}
+BN_TRAIN_LAUNCHES = 4
+# Each case's y, dout and bias are seeded draws; these (side, C, dtype) also
+# run on a row-cropped view of an extended y (a spatial band's own rows).
+BN_TRAIN_CROPPED = ((256, 64, torch.bfloat16), (64, 256, torch.float32))
+
+
+def bn_train_inputs(g: torch.Generator, dev, side: int, c: int, dtype, rows: int = 0):
+    """y (B, side + rows, side, C), bias, dout (B, side, side, C) and a
+    BatchNorm with random affine and running statistics."""
+    b = TRAIN_BATCH
+    y = (torch.randn(b, side + rows, side, c, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+    bias = (torch.randn(c, generator=g, device=dev) * 0.2).to(dtype)
+    dout = torch.randn(b, side, side, c, generator=g, device=dev).to(dtype)
+    bn = torch.nn.BatchNorm2d(c).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn(c, generator=g, device=dev) * 0.1)
+        bn.running_mean.copy_(torch.randn(c, generator=g, device=dev))
+        bn.running_var.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+    return y, bias, dout, bn
+
+
+def kernels_ms(fn, key: str, reps: int = 10) -> float:
+    """Device ms a call of ``fn`` spends in kernels whose names hold ``key``:
+    their summed durations in a profiler trace of ``reps`` calls, after a
+    warm-up call.  Events around a call also time the host's enqueue where it
+    is the slower (small shapes)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if key in e.name and e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def bn_train_run(fn, y, bias, dout, bn):
+    """One forward and backward of ``fn`` (the wrapper or its plain version):
+    (out, dy, dweight, dbias, running_mean, running_var)."""
+    leaf = y.detach().requires_grad_(True)
+    out = fn(leaf, bias, bn)
+    dy, dw, db = torch.autograd.grad(out, (leaf, bn.weight, bn.bias), dout)
+    return out, dy, dw, db, bn.running_mean, bn.running_var
+
+
+def bn_train_compare(label: str, y, bias, dout, eps: float, got, want) -> tuple[float, int]:
+    """Hold the kernels' (out, dy, dweight, dbias, running statistics) to the
+    plain version's.  The two sum the statistics in other orders, so an
+    element whose normalised value lies within rounding of 0 may take the
+    other side of the ReLU (its output is then 0 on one side and a few ulp
+    on the other): its dy is left out, and its own term is allowed in its
+    channel's dweight and dbias.  Such elements are counted; at most 16 plus
+    1e-6 of the elements.  Returns the largest error and the count."""
+    out, dy, dw, db, rm, rv = got
+    pout, pdy, pdw, pdb, prm, prv = want
+    tol = 1e-2 if y.dtype == torch.bfloat16 else 1e-4
+    flip = (out > 0) != (pout > 0)
+    flips = int(flip.sum())
+    yb = (y + bias).float()
+    mean = yb.mean(dim=(0, 1, 2))
+    rstd = torch.rsqrt(((yb * yb).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0) + eps)
+    g_flip = dout.float().abs() * flip
+    allow_b = g_flip.sum(dim=(0, 1, 2))
+    allow_w = (g_flip * (yb - mean).abs()).sum(dim=(0, 1, 2)) * rstd
+    errs = []
+    for what, a, b, allow in (
+            ("out", out, pout, tol + tol * pout.float().abs()),
+            ("dy", dy.masked_fill(flip, 0), pdy.masked_fill(flip, 0),
+             tol + tol * pdy.float().abs()),
+            ("dbias", db, pdb, 2e-3 * pdb.abs().max() + 1.01 * allow_b),
+            ("dweight", dw, pdw, 2e-3 * pdw.abs().max() + 1.01 * allow_w),
+            ("running_mean", rm, prm, 1e-5 + 1e-5 * prm.abs()),
+            ("running_var", rv, prv, 1e-5 + 1e-5 * prv.abs())):
+        diff = (a.detach().float() - b.detach().float()).abs()
+        errs.append(float(diff.max()))
+        if not (bool(torch.isfinite(a).all()) and bool((diff <= allow).all())):
+            raise AssertionError(f"bn_relu_train {label}: {what} disagrees with the plain "
+                                 f"version (max difference {errs[-1]:.3e})")
+    if flips > 16 + 1e-6 * out.numel():
+        raise AssertionError(f"bn_relu_train {label}: {flips} elements on the other side of "
+                             "the ReLU")
+    return max(errs), flips
+
+
+def check_bn_train(table: KernelTable, dev) -> None:
+    """Phase 3's fused train-mode BatchNorm: forward and backward through the
+    kernels against the plain version at the U-Net's 18 train shapes (five
+    distinct) and U-Net++'s five, in bf16 and f32, and on two row-cropped
+    views; two runs on the same inputs must give the same bits.  Times are
+    events around a forward and backward through the wrapper, and the four
+    kernels' own device time (``device_ms``, from a profiler trace); the bound is
+    y read twice, dout once, out and dy written once (10 bytes an element
+    in bf16); the library call is cuDNN's train-mode ``F.batch_norm`` with
+    ReLU, forward and backward, which the port never calls."""
+    from maunet_tpu_torch.ops.kernels import batchnorm_train as bnt
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    kernel, plain = bnt.bn_relu_train, bnt.bn_relu_train_plain
+    step = {dt: [0.0, 0.0, 0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
+    cases = ([("U-Net", side, c, n, dt, 0) for side, c, n in BN_TRAIN_UNET
+              for dt in (torch.bfloat16, torch.float32)]
+             + [("U-Net++", side, c, 0, dt, 0) for side, c in BN_TRAIN_UNETPP
+                for dt in (torch.bfloat16, torch.float32)]
+             + [("cropped", side, c, 0, dt, 2) for side, c, dt in BN_TRAIN_CROPPED])
+    for model, side, c, times, dtype, rows in cases:
+        y, bias, dout, bn = bn_train_inputs(g, dev, side, c, dtype, rows)
+        if rows:
+            y = y[:, rows // 2:rows // 2 + side]
+        label = (f"{model} {tuple(y.shape)} {str(dtype).split('.')[-1]}"
+                 + (f" x{times}" if times else ""))
+        launches = kernel.launches
+        got = bn_train_run(kernel, y, bias, dout, copy.deepcopy(bn))
+        if kernel.launches != launches + BN_TRAIN_LAUNCHES:
+            raise AssertionError(f"bn_relu_train {label}: {kernel.launches - launches} "
+                                 f"launches, not {BN_TRAIN_LAUNCHES}")
+        want = bn_train_run(plain, y, bias, dout, copy.deepcopy(bn))
+        again = bn_train_run(kernel, y, bias, dout, copy.deepcopy(bn))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"bn_relu_train {label}: two runs differ")
+        if rows:
+            whole = bn_train_run(kernel, y.contiguous(), bias, dout, copy.deepcopy(bn))
+            if not all(torch.equal(a, b) for a, b in zip(got, whole)):
+                raise AssertionError(f"bn_relu_train {label}: the view and its copy differ")
+        err, flips = bn_train_compare(label, y, bias, dout, bn.eps, got, want)
+        torch.cuda.synchronize()
+        timed = copy.deepcopy(bn)
+        ms = cuda_ms(lambda: bn_train_run(kernel, y, bias, dout, timed))
+        device_ms = kernels_ms(lambda: bn_train_run(kernel, y, bias, dout, timed),
+                               "batchnorm_train_")
+        plain_ms = cuda_ms(lambda: bn_train_run(plain, y, bias, dout, timed))
+        library_ms = None
+        if not rows:
+            x = y.permute(0, 3, 1, 2)
+            dx = dout.permute(0, 3, 1, 2)
+            w = bn.weight.detach().clone().requires_grad_(True)
+            beta = bn.bias.detach().clone().requires_grad_(True)
+            rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+
+            def library():
+                leaf = x.detach().requires_grad_(True)
+                o = torch.relu(F.batch_norm(leaf, rm, rv, w, beta, training=True,
+                                            momentum=0.1, eps=bn.eps))
+                return torch.autograd.grad(o, (leaf, w, beta), dx)
+
+            library_ms = cuda_ms(library)
+        bytes_ms = 5 * y.numel() * y.element_size() / HBM_BYTES_PER_S * 1e3
+        print(f"kernel bn_relu_train {label}{' [path]' if times else ''}: max_abs_err={err:.3e} "
+              f"edge_flips={flips} ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bytes_ms:.4f} "
+              f"(bytes) library_ms=" + ("none" if library_ms is None else f"{library_ms:.4f}")
+              + " ok")
+        if times:
+            for i, v in enumerate((ms, device_ms, plain_ms, bytes_ms, library_ms)):
+                step[dtype][i] += times * v
+            if dtype == torch.bfloat16:
+                table.add("bn_relu_train", err, ms, plain_ms, bytes_ms, 0.0, library_ms, times)
+    for dtype, (ms, device_ms, plain_ms, bound_ms, library_ms) in step.items():
+        print(f"bn_relu_train, a U-Net64 train step's {BN_TRAIN_CALLS['unet']} BNs "
+              f"(B = {TRAIN_BATCH}, 256², {str(dtype).split('.')[-1]}): ms={ms:.4f} "
+              f"device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"(5 x {torch.finfo(dtype).bits // 8} bytes an element at 3.35 TB/s) "
+              f"library_ms={library_ms:.4f} launches a step "
+              f"{BN_TRAIN_LAUNCHES * BN_TRAIN_CALLS['unet']}")
+
+
 def check_golden(dev) -> None:
     """The port's U-Net and U-Net++ on the card against the JAX package's
     recorded outputs (``tests/fixtures/golden_unet.npz`` and
@@ -1226,14 +1418,15 @@ def serving_path(dev, path: str) -> dict[str, int]:
 
 def wrappers() -> dict:
     """Every kernel wrapper, by name; each counts its launches."""
-    from maunet_tpu_torch.ops.kernels import lstm, masked_stats, packed_vgg, resize_pack
+    from maunet_tpu_torch.ops.kernels import (batchnorm_train, lstm, masked_stats, packed_vgg,
+                                              resize_pack)
 
     return {fn.__name__: fn for fn in (
         packed_vgg.conv3x3_fused, lstm.lstm_last_hidden, resize_pack.resize_pack,
         lstm.lstm_forward_stash, lstm.lstm_gate_terms, lstm.lstm_backward, lstm.lstm_dw,
         masked_stats.masked_class_sums, packed_vgg.conv3x3_pair_fused,
         resize_pack.resize_rows, packed_vgg.conv3x3_fused_f32,
-        packed_vgg.conv3x3_pair_fused_f32)}
+        packed_vgg.conv3x3_pair_fused_f32, batchnorm_train.bn_relu_train)}
 
 
 def reset_launches() -> dict:
@@ -1267,7 +1460,7 @@ def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
     from maunet_tpu_torch.data.dataset import NpzDataset, make_batches
     from maunet_tpu_torch.data.pipeline import host_tensors, to_device
     from maunet_tpu_torch.losses import get_loss_fn
-    from maunet_tpu_torch.ops.kernels import lstm, resize_pack
+    from maunet_tpu_torch.ops.kernels import batchnorm_train, lstm, resize_pack
     from maunet_tpu_torch.train.config import TrainConfig
     from maunet_tpu_torch.train.loop import Trainer
     from maunet_tpu_torch.train.steps import train_step
@@ -1307,8 +1500,12 @@ def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
             == launches["lstm_backward"] == launches["lstm_dw"] == steps):
         raise AssertionError(f"training path: E, F's two launches and dW must launch "
                              f"once per step ({steps})")
+    if launches["bn_relu_train"] != BN_TRAIN_LAUNCHES * BN_TRAIN_CALLS["unet"] * steps:
+        raise AssertionError(f"training path: {launches['bn_relu_train']} fused BatchNorm "
+                             f"launches, not {BN_TRAIN_LAUNCHES * BN_TRAIN_CALLS['unet']} a step")
     missing = [name for name in ("lstm_forward_stash", "lstm_gate_terms", "lstm_backward",
-                                 "lstm_dw", "resize_pack", "conv3x3_fused", "lstm_last_hidden")
+                                 "lstm_dw", "resize_pack", "conv3x3_fused", "lstm_last_hidden",
+                                 "bn_relu_train")
                if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the training path: {missing}")
@@ -1325,7 +1522,9 @@ def train_path(dev, tmpdir: str, data: str) -> dict[str, int]:
     state.model.load_state_dict(model_sd)
     state.optimizer.load_state_dict(opt_sd)
     with mock.patch.object(lstm, "lstm_last_hidden", lstm.lstm_last_hidden_scan), \
-            mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain):
+            mock.patch.object(resize_pack, "resize_pack", resize_pack.resize_pack_plain), \
+            mock.patch.object(batchnorm_train, "bn_relu_train",
+                              batchnorm_train.bn_relu_train_plain):
         want = {k: float(v) for k, v in train_step(state, batch, loss_fn).items()}
     loss_rel = abs(got["total"] - want["total"]) / abs(want["total"])
     norm_rel = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
@@ -1406,7 +1605,7 @@ def train_variants_path(dev, data: str) -> None:
     from maunet_tpu_torch.data.pipeline import host_tensors, to_device
     from maunet_tpu_torch.losses import get_loss_fn
     from maunet_tpu_torch.models import UrbanPredictor
-    from maunet_tpu_torch.ops.kernels import packed_vgg
+    from maunet_tpu_torch.ops.kernels import batchnorm_train, packed_vgg
     from maunet_tpu_torch.train.config import TrainConfig
     from maunet_tpu_torch.train.optimizers import make_optimizer
     from maunet_tpu_torch.train.state import TrainState
@@ -1439,6 +1638,12 @@ def train_variants_path(dev, data: str) -> None:
             metrics = train_step(state, batch, loss_fn)
             torch.cuda.synchronize()
             a_launches = packed_vgg.conv3x3_fused.launches
+            # remat runs each block's forward again in the backward
+            want_bn = (BN_TRAIN_LAUNCHES + 2 * bool(flags.get("remat"))) \
+                * BN_TRAIN_CALLS[cfg.model_type]
+            if batchnorm_train.bn_relu_train.launches != want_bn:
+                raise AssertionError(f"train step {name}: {batchnorm_train.bn_relu_train.launches}"
+                                     f" fused BatchNorm launches, not {want_bn}")
             grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
             buffers = {k: v.clone() for k, v in model.named_buffers()}
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3204,6 +3409,10 @@ KERNEL_INFO = {
     "conv3x3_fused_f32": (F32_SOURCE, "maunet_tpu/ops/pallas/packed_vgg.py:451", "f32"),
     "conv3x3_pair_fused_f32": (F32_SOURCE, "maunet_tpu/ops/pallas/packed_vgg.py:373",
                                "f32_pair"),
+    # replaces no TPU kernel: the JAX package runs flax's nn.BatchNorm and
+    # ReLU there (maunet_tpu/models/blocks.py:506-521)
+    "bn_relu_train": ("maunet_tpu_torch/csrc/batchnorm_train.cu",
+                      "none (XLA-fused flax BatchNorm)", "training"),
 }
 
 
@@ -3234,6 +3443,7 @@ def main() -> int:
     table = KernelTable()
     check_kernels(table, dev)
     check_f32_kernels(table, dev, registers)
+    check_bn_train(table, dev)
     check_golden(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         checkpoints = {m: write_checkpoint(tmpdir, m) for m in FULL_WIDTH}

@@ -48,11 +48,13 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from maunet_tpu_torch.ops import train_conv
+from maunet_tpu_torch.ops.kernels import batchnorm_train as bn_kernels
 from maunet_tpu_torch.ops.kernels import packed_vgg as pvgg
 from maunet_tpu_torch.parallel.multihost import world_size
 from maunet_tpu_torch.parallel.spatial import current as spatial_context
@@ -142,15 +144,20 @@ def split_parts(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
 def with_halo(spatial: Sequence[torch.Tensor], hw: tuple[int, int], rows: int):
     """Under a spatial context: the spatial parts with ``rows`` halo rows of
     each neighbouring band added (contiguous), their (H, W), and the crop
-    that keeps a result's rows of this band.  Outside one: the parts, ``hw``
-    and the identity."""
+    that keeps a result's rows of this band (contiguous, or a view with
+    ``contiguous=False``).  Outside one: the parts, ``hw`` and the identity."""
     if spatial_context() is None:
-        return spatial, hw, lambda y: y
+        return spatial, hw, lambda y, contiguous=True: y
     h = hw[0]
     extended = [halo_rows(p, rows, rows) for p in spatial]
     top = extended[0][1]
     parts = [e.contiguous() for e, _ in extended]
-    return parts, (parts[0].shape[1], hw[1]), lambda y: y[:, top:top + h].contiguous()
+
+    def crop(y: torch.Tensor, contiguous: bool = True) -> torch.Tensor:
+        y = y[:, top:top + h]
+        return y.contiguous() if contiguous else y
+
+    return parts, (parts[0].shape[1], hw[1]), crop
 
 
 def embedding_add(bcast, hw: tuple[int, int]) -> torch.Tensor | None:
@@ -252,10 +259,13 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     per-channel [sum y, sum y^2, count] is summed over the process group by
     a differentiable all-reduce, whose backward sums the gradients of those
     sums over the ranks; every rank then updates the running statistics
-    alike.  With one rank nothing is exchanged."""
-    yf = y.float()
+    alike.  With one rank nothing is exchanged.  An f64 input stays f64.
+
+    On a CUDA tensor :func:`conv_bn_relu_train` runs this, the ReLU and the
+    cast as the kernels of ``ops/kernels/batchnorm_train.py``."""
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
     if world_size() > 1:
-        count = torch.full((1,), yf[..., 0].numel(), dtype=torch.float32, device=y.device)
+        count = torch.full((1,), yf[..., 0].numel(), dtype=yf.dtype, device=y.device)
         sums = torch.cat([yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2)), count])
         sums = dist_fn.all_reduce(sums)
         c = y.shape[-1]
@@ -286,7 +296,11 @@ def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
     backward (:func:`~maunet_tpu_torch.ops.train_conv.train_conv3x3`).  The
     broadcast embeddings go through the closed form :func:`const_conv`.  The
     conv bias is detached, as JAX ``stop_gradient``s it: batch-statistics BN
-    cancels it exactly.  BN in f32, ReLU, then a cast to ``compute_dtype``."""
+    cancels it exactly.  BN in f32, ReLU, then a cast to ``compute_dtype``:
+    :func:`batch_norm_train` on a CPU tensor, the kernels of
+    :func:`~maunet_tpu_torch.ops.kernels.batchnorm_train.bn_relu_train` on a
+    CUDA one, which add the bias themselves and read a spatial band's rows
+    in place."""
     hw, spatial, weights, bcast = split_parts(parts, conv, compute_dtype,
                                               contiguous=False)
     ctx = spatial_context()
@@ -305,8 +319,14 @@ def conv_bn_relu_train(parts: Sequence[torch.Tensor], conv: nn.Conv2d,
                      padding=1).permute(0, 2, 3, 1)
     for e, w_e in bcast:
         y = y + const_conv(e, w_e, *hw).to(compute_dtype)
-    y = crop(y + conv.bias.detach().to(compute_dtype))
-    return torch.relu(batch_norm_train(y, bn)).to(compute_dtype).contiguous()
+    bias = conv.bias.detach().to(compute_dtype)
+    if y.device.type == "cpu":
+        y = crop(y + bias)
+        return torch.relu(batch_norm_train(y, bn)).to(compute_dtype).contiguous()
+    return bn_kernels.bn_relu_train(
+        crop(y, contiguous=False), bias, bn,
+        update_running=not getattr(_frozen, "on", False),
+        all_reduce=dist.all_reduce if world_size() > 1 else None)
 
 
 def _remat_contexts():

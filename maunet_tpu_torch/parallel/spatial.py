@@ -19,8 +19,8 @@ fetches the rows it needs from its neighbours first:
 Everything else is local: the 2x2 pools (the guard makes every band's
 height even at every level), the 1x1 heads, and BatchNorm, whose statistics
 are summed over every rank of the process group already
-(``blocks.batch_norm_train``).  The LSTM and the metadata MLP run whole on
-every rank of a data index.
+(``blocks.batch_norm_train``; on the card ``ops/kernels/batchnorm_train.py``).
+The LSTM and the metadata MLP run whole on every rank of a data index.
 
 :func:`row_shards` makes a :class:`SpatialContext` current; the train and
 eval steps enter it (``train/steps.py``), and the model and the losses read

@@ -15,7 +15,8 @@ component over them, validation and inference read the last.
 
 Data parallelism (one rank per device, ``parallel.multihost``): each rank
 steps on its rows of the global batch, BatchNorm's statistics are the global
-batch's (``models.blocks.batch_norm_train``), and after the backward the
+batch's (``models.blocks.batch_norm_train``, on the card the kernels of
+``ops/kernels/batchnorm_train.py``), and after the backward the
 gradients are averaged over the ranks in a few flat buckets before the norm,
 the clip and the update, so every rank applies the same global update, as
 JAX's GSPMD step does.  The logged loss components are averaged alike.  An
